@@ -1,0 +1,533 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+1. Builds the three CUDA kernels of the MoE decode path from
+   src/repro_torch/kernels/csrc/ with nvcc (one process per source, in
+   parallel) and prints the build seconds and the compiler's register /
+   shared-memory report.
+2. Holds each kernel against its plain PyTorch version on the card at the
+   main path's full qwen3-30b-a3b shapes, and times kernel, plain version
+   and (where one PyTorch call computes the same function) that call, with
+   CUDA events: median of 20 launches, L2 flushed before each.
+3. Checks the kernel path against the plain path end to end: one f32 decode
+   step at full width (2 layers) with kernels vs without.
+4. Serves requests through ``Engine`` at full qwen3-30b-a3b width (bf16,
+   depth cut to 4 layers: 48 layers are ~61 GB of weights; depth changes no
+   kernel shape) on the paged KV layout with the fused MoE path, then a
+   shorter run with int8 KV pages.  Every request must finish, all logits
+   must be finite, prefix pages must be shared and the pool drained, and
+   each kernel's launch count must match the path.
+5. Prints the card's name and power limit, one JSON line listing the
+   kernels, and as the last line ``{"ok": true, "device": {...}}``.
+
+Exits non-zero, printing no result, when there is no CUDA device or the
+port's sources are missing.  Imports nothing of JAX or of the reference
+package.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+ARCH = "qwen3-30b-a3b"
+SEED = 0
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (NVIDIA data sheet)
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense bf16 tensor / f32 non-tensor
+TOL = {"bfloat16": 5e-2, "float32": 2e-4}
+# (rtol, atol) of flash_decode_paged against its plain version: both compute
+# in f32 and round the output to q's dtype once, so a bf16 output may differ
+# by one rounding step (< 1 % of the value)
+FD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (2e-4, 2e-4)}
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+# ----------------------------------------------------------------------------- timing
+
+class Timer:
+    """CUDA-event timing of one launch at a time, median over ``iters``,
+    with a 256 MB buffer rewritten before each launch so that no input is
+    left in the 50 MB L2 by the previous launch."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=DEVICE)
+
+    def ms(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        return statistics.median(out)
+
+
+def max_excess(got, want, rtol: float, atol: float) -> tuple:
+    """(max |got - want|, max of |got - want| - rtol * |want| - atol): the
+    second is <= 0 when every element is within allclose(rtol, atol)."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    return float(d.max()), float((d - rtol * w.abs() - atol).max())
+
+
+def check_close(name: str, got, want, rtol: float, atol: float | None = None) -> float:
+    atol = rtol if atol is None else atol
+    finite = bool(got.float().isfinite().all())
+    err, excess = max_excess(got, want, rtol, atol)
+    if not finite or excess > 0:
+        raise AssertionError(f"{name}: kernel disagrees with plain version "
+                             f"(max abs err {err:.3e}, rtol {rtol}, atol {atol}, "
+                             f"finite={finite})")
+    return err
+
+
+# ----------------------------------------------------------------------------- kernels
+
+def kernel_phase(torch, timer: Timer, cfg) -> dict:
+    from repro_torch.kernels import flash_decode_paged, moe_gemm, ref, topk_router_replicated
+    from repro_torch.models.moe import ExpertPlacement
+    from repro_torch.training.compression import quantize_int8
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    dev = DEVICE
+    results = {}
+
+    def randn(*shape, dtype=torch.float32, std=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    # --- paged flash-decode: B = max_slots = 8, NB = max_seq / 16 = 64 ----------
+    b, hq, hkv, d, bs, nb = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, 64
+    pool = b * nb + 1
+    q = randn(b, hq, d, dtype=torch.bfloat16)
+    kp = randn(pool, bs, hkv, d, dtype=torch.bfloat16)
+    vp = randn(pool, bs, hkv, d, dtype=torch.bfloat16)
+    perm = torch.randperm(pool - 1, generator=gen, device=dev)[:b * nb] + 1
+    tables = perm.reshape(b, nb).to(torch.int32)
+    lengths = torch.randint(1, nb * bs + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    lengths[3] = 0
+    kq, ksc = torch.vmap(quantize_int8)(kp.reshape(pool, -1))
+    vq, vsc = torch.vmap(quantize_int8)(vp.reshape(pool, -1))
+    kq, vq = kq.reshape(kp.shape), vq.reshape(vp.shape)
+    # lengths rounded up to the end of their last page: what a kernel that
+    # ignored the in-page length mask would attend to
+    page_end = ((lengths + bs - 1) // bs * bs).to(torch.int32)
+    n_tok = int(lengths.sum())
+    fd = {}
+    for pages, (kk, vv, ks, vs) in (("bf16", (kp, vp, None, None)),
+                                    ("int8", (kq, vq, ksc, vsc)),
+                                    ("f32", (kp.float(), vp.float(), None, None)),
+                                    ("int8/f32 q", (kq, vq, ksc, vsc))):
+        qq = q.float() if pages in ("f32", "int8/f32 q") else q
+        rtol, atol = FD_TOL[str(qq.dtype).removeprefix("torch.")]
+        for softcap in (0.0, 30.0):
+            # softcap cases scale q so that the scores reach where the cap
+            # bends them, as the CPU test does
+            args = (qq * 10 if softcap else qq, kk, vv, tables, lengths)
+            kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
+            name = f"flash_decode_paged[{pages},softcap={softcap}]"
+            got = flash_decode_paged(*args, **kw)
+            want = ref.ref_flash_decode_paged(*args, **kw)
+            torch.cuda.synchronize()
+            err = check_close(name, got, want, rtol, atol)
+            if not (got[3] == 0).all():
+                raise AssertionError("flash_decode_paged: length-0 row is not exactly zero")
+            # the gate must be tight enough to see the faults it is there for
+            wrong = {"no length mask": ref.ref_flash_decode_paged(
+                args[0], kk, vv, tables, page_end, **kw)}
+            if softcap:
+                wrong["no softcap"] = ref.ref_flash_decode_paged(*args, **{**kw, "softcap": 0.0})
+            if ks is not None:
+                wrong["stale page scale"] = ref.ref_flash_decode_paged(
+                    *args, **{**kw, "k_scale": ks.roll(1), "v_scale": vs.roll(1)})
+            for fault, bad in wrong.items():
+                if max_excess(bad, want, rtol, atol)[1] <= 0:
+                    raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
+                                         f"from the plain version")
+            if pages not in ("bf16", "int8"):
+                log(f"kernel flash_decode_paged pages={pages} softcap={softcap}: "
+                    f"max_abs_err={err:.3e} (rtol {rtol}, atol {atol})")
+                fd[(pages, softcap)] = dict(err=err)
+                continue
+            ms = timer.ms(lambda: flash_decode_paged(*args, **kw))
+            plain = timer.ms(lambda: ref.ref_flash_decode_paged(*args, **kw))
+            kv_item = 1 if pages == "int8" else 2
+            nbytes = (2 * q.numel() * 2 + n_tok * hkv * d * 2 * kv_item
+                      + tables.numel() * 4 + b * 4
+                      + (2 * 4 * int(((lengths + bs - 1) // bs).sum()) if ks is not None else 0))
+            flops = 4 * n_tok * hq * d
+            fd[(pages, softcap)] = dict(err=err, ms=ms, plain=plain,
+                                        bound=_bound(nbytes, flops, "bfloat16"))
+            log(f"kernel flash_decode_paged pages={pages} softcap={softcap} B={b} NB={nb} "
+                f"tokens={n_tok}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol}) "
+                f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
+                f"bound_ms={fd[(pages, softcap)]['bound'][0]:.4f} "
+                f"({fd[(pages, softcap)]['bound'][1]})")
+    main = fd[("bf16", 0.0)]
+    results["flash_decode_paged"] = dict(
+        source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+        replaces="src/repro/kernels/flash_decode.py:157",
+        max_abs_err=max(v["err"] for v in fd.values()), ms=main["ms"],
+        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=None)
+
+    # --- router: T = 8 (decode) and 512 (prefill bucket) ------------------------
+    e, k = cfg.num_experts, cfg.moe_top_k
+    ident = ExpertPlacement.identity(e, device=dev)
+    inv = torch.cat([torch.arange(e, device=dev),
+                     torch.randint(0, e, (8,), generator=gen, device=dev)])
+    inv = inv[torch.randperm(e + 8, generator=gen, device=dev)]
+    rep = ExpertPlacement.from_slot_map(inv, e, device=dev)
+    rt = {}
+    for t in (8, 512):
+        for tables_name, plc in (("identity", ident), ("R=8", rep)):
+            for tied in (False, True):
+                logits = randn(t, e, std=2.0)
+                if tied:
+                    logits = (torch.round(logits) / 2).clamp(-1, 1)
+                args = (logits, k, plc.replica_slots, plc.replica_count, plc.num_slots)
+                got = topk_router_replicated(*args)
+                want = ref.ref_topk_router_replicated(*args)
+                torch.cuda.synchronize()
+                err = check_close(f"topk_router[T={t},{tables_name},tied={tied}]",
+                                  got[0], want[0], 1e-5)
+                for name, g_, w_ in zip(("ids", "slots", "pos"), got[1:], want[1:]):
+                    if not torch.equal(g_, w_):
+                        raise AssertionError(f"topk_router[T={t},{tables_name},tied={tied}]: "
+                                             f"{name} differ in {int((g_ != w_).sum())} places")
+                ms = timer.ms(lambda: topk_router_replicated(*args))
+                plain = timer.ms(lambda: ref.ref_topk_router_replicated(*args))
+                nbytes = (t * e * 4 + plc.replica_slots.numel() * 4 + e * 4 + 4 * t * k * 4)
+                flops = 5 * t * e
+                rt[(t, tables_name, tied)] = dict(err=err, ms=ms, plain=plain,
+                                                  bound=_bound(nbytes, flops, "float32"))
+                log(f"kernel topk_router_replicated T={t} tables={tables_name} tied={tied}: "
+                    f"max_abs_err={err:.3e} (tol 1e-5) ints_exact=True ms={ms:.4f} "
+                    f"plain_ms={plain:.4f} library_ms=none "
+                    f"bound_ms={rt[(t, tables_name, tied)]['bound'][0]:.6f} (bytes)")
+    main = rt[(8, "identity", False)]
+    results["topk_router_replicated"] = dict(
+        source="src/repro_torch/kernels/csrc/topk_router.cu",
+        replaces="src/repro/kernels/topk_router.py:155",
+        max_abs_err=max(v["err"] for v in rt.values()), ms=main["ms"],
+        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=None)
+
+    # --- grouped GEMM: C = 8 (decode, T = 8) and 48 (512-token bucket) ----------
+    dm, f = cfg.d_model, cfg.moe_d_ff
+    mg = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        w_up = randn(e, dm, f, dtype=dtype, std=dm ** -0.5)
+        w_down = randn(e, f, dm, dtype=dtype, std=f ** -0.5)
+        for c in (8, 48):
+            for proj, w, din in (("gate/up", w_up, dm), ("down", w_down, f)):
+                x = randn(e, c, din, dtype=dtype)
+                got = moe_gemm(x, w)
+                want = ref.ref_moe_gemm(x, w)
+                torch.cuda.synchronize()
+                err = check_close(f"moe_gemm[{dtype_name},C={c},{proj}]", got, want,
+                                  TOL[dtype_name])
+                ms = timer.ms(lambda: moe_gemm(x, w))
+                plain = timer.ms(lambda: ref.ref_moe_gemm(x, w))
+                lib = timer.ms(lambda: torch.bmm(x, w))
+                item = x.element_size()
+                dout = w.shape[2]
+                nbytes = (x.numel() + w.numel() + e * c * dout) * item
+                flops = 2 * e * c * din * dout
+                mg[(dtype_name, c, proj)] = dict(err=err, ms=ms, plain=plain, lib=lib,
+                                                 bound=_bound(nbytes, flops, dtype_name))
+                log(f"kernel moe_gemm dtype={dtype_name} C={c} {proj} "
+                    f"({e}x{c}x{din} @ {e}x{din}x{dout}): max_abs_err={err:.3e} "
+                    f"(tol {TOL[dtype_name]}) ms={ms:.4f} plain_ms={plain:.4f} "
+                    f"library_ms(torch.bmm)={lib:.4f} "
+                    f"bound_ms={mg[(dtype_name, c, proj)]['bound'][0]:.4f} "
+                    f"({mg[(dtype_name, c, proj)]['bound'][1]})")
+        del w_up, w_down
+    main = mg[("bfloat16", 8, "gate/up")]
+    results["moe_gemm"] = dict(
+        source="src/repro_torch/kernels/csrc/moe_gemm.cu",
+        replaces="src/repro/kernels/moe_gemm.py:33",
+        max_abs_err=max(v["err"] for v in mg.values()), ms=main["ms"],
+        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=main["lib"])
+    return results
+
+
+def _bound(nbytes: int, flops: int, dtype_name: str) -> tuple:
+    """(least milliseconds, what bounds it): the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------------------- reference check
+
+def reference_phase(torch, cfg) -> None:
+    """One f32 decode step at full width through the kernels (fused router +
+    grouped GEMMs, paged flash-decode) against the plain path (gather
+    dispatch, attention over gathered pages) on the same pages."""
+    from repro_torch.core.types import Request
+    from repro_torch.models import model as M
+    from repro_torch.serving.backend import TorchBackend
+
+    cfg32 = cfg.replace(num_layers=2, dtype="float32")
+    params = M.init_params(cfg32, seed=SEED + 1, device=DEVICE)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    outs = []
+    for fused in (True, False):
+        be = TorchBackend(cfg32, params, max_slots=4, max_seq=256, kv_layout="paged",
+                          dispatch_mode="fused" if fused else "gather",
+                          use_kernels=fused, device=DEVICE)
+        rng.manual_seed(SEED + 1)
+        for i, plen in enumerate((40, 97, 130)):
+            toks = torch.randint(0, cfg.vocab_size, (plen,), generator=rng).numpy()
+            be.start(Request(i, plen, 4, 0.0, prompt_tokens=toks), 0.0)
+        tokens = torch.as_tensor(be.slot_last_token.astype("int64"), device=DEVICE)[:, None]
+        with torch.no_grad():
+            logits, _, _ = M.decode_step_paged(
+                params, cfg32, tokens, be.kv.pages, be.kv.device_tables(),
+                be.kv.positions(), dispatch_mode=be.dispatch_mode, use_kernel=fused)
+        outs.append((logits[:3], be.slot_last_token[:3].copy()))
+        del be
+    torch.cuda.synchronize()
+    (lk, tk), (lp, tp) = outs
+    err = check_close("decode_step_paged f32 kernels vs plain", lk, lp, TOL["float32"])
+    if list(tk) != list(tp):
+        raise AssertionError(f"prefill greedy tokens differ: {tk} vs {tp}")
+    log(f"reference: f32 full-width decode step, kernels vs plain path: "
+        f"max_abs_err={err:.3e} (tol {TOL['float32']}), logits {tuple(lk.shape)}, "
+        f"prefill tokens equal {[int(x) for x in tk]}")
+    del params
+    torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------------- engine
+
+def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label: str,
+               trace: bool = False) -> dict:
+    """Serve ``n_req`` requests (half sharing a 256-token prefix) through
+    ``Engine`` and check the run.  ``trace`` records the run with
+    torch.profiler and reports the device's busy share and kernel times."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.core.types import Request
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(0, cfg, params, variant="gimbal", expert_level=None, max_slots=8,
+                 max_seq=1024, prefill_budget=512, kv_layout="paged", kv_block_size=16,
+                 kv_quant=kv_quant, dispatch_mode="fused", use_kernels=True,
+                 device=DEVICE)
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, cfg.vocab_size, 256)
+    reqs = []
+    for i in range(n_req):
+        plen = int(rng.integers(128, 513))
+        if i % 2 == 0:
+            toks = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, max(plen - 256, 1))])
+        else:
+            toks = rng.integers(0, cfg.vocab_size, plen)
+        reqs.append(Request(i, len(toks), max_new, 0.0, prompt_tokens=toks))
+
+    seen = {"prefill": 0, "decode": 0, "finite": True}
+    orig_prefill, orig_decode = M.prefill, M.decode_step_paged
+
+    def prefill(*a, **kw):
+        out = orig_prefill(*a, **kw)
+        seen["prefill"] += 1
+        seen["finite"] &= bool(out[0].isfinite().all())
+        return out
+
+    def decode(*a, **kw):
+        out = orig_decode(*a, **kw)
+        seen["decode"] += 1
+        seen["finite"] &= bool(out[0].isfinite().all())
+        return out
+
+    # host seconds in the backend's prefill and decode calls; each ends in a
+    # device -> host copy of the next tokens, so it includes the device work
+    secs = {"start": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            secs[name] += time.perf_counter() - t
+            return out
+        return call
+
+    eng.backend.start = timed("start", eng.backend.start)
+    eng.backend.decode = timed("decode", eng.backend.decode)
+    M.prefill, M.decode_step_paged = prefill, decode
+    prof = None
+    try:
+        torch.cuda.synchronize()
+        if trace:
+            from torch.profiler import ProfilerActivity, profile
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r, 0.0)
+        done, now = [], 0.0
+        while len(done) < len(reqs) and eng.steps < 10_000:
+            done += eng.step(now)
+            now += 0.05
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    finally:
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        M.prefill, M.decode_step_paged = orig_prefill, orig_decode
+
+    L = cfg.num_layers
+    gen_tokens = sum(r.generated for r in done)
+    prompt_tokens = sum(r.prompt_len for r in done)
+    log(f"engine[{label}]: requests={len(done)}/{len(reqs)} steps={eng.steps} "
+        f"prefills={seen['prefill']} decode_steps={seen['decode']} "
+        f"prompt_tokens={prompt_tokens} generated_tokens={gen_tokens} "
+        f"wall_s={wall:.3f} generated_tokens_per_s={gen_tokens / wall:.2f} "
+        f"shared_hits={eng.kv.shared_hits} blocks_used_after={eng.kv.blocks_used} "
+        f"launches={launches}")
+    log(f"engine[{label}] time: prefill_s={secs['start']:.4f} "
+        f"({1e3 * secs['start'] / max(seen['prefill'], 1):.3f} ms per request) "
+        f"decode_s={secs['decode']:.4f} "
+        f"({1e3 * secs['decode'] / max(seen['decode'], 1):.3f} ms per step of "
+        f"{eng.max_slots} rows) scheduler_and_rest_s="
+        f"{wall - secs['start'] - secs['decode']:.4f}")
+    if prof is not None:
+        _report_trace(prof, wall, label)
+    if len(done) != len(reqs):
+        raise AssertionError(f"engine[{label}]: only {len(done)}/{len(reqs)} finished")
+    if not seen["finite"]:
+        raise AssertionError(f"engine[{label}]: non-finite logits")
+    if eng.kv.shared_hits <= 0 or eng.kv.blocks_used != 0:
+        raise AssertionError(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
+                             f"blocks_used={eng.kv.blocks_used}")
+    if any(r.generated != max_new for r in done):
+        raise AssertionError(f"engine[{label}]: a request stopped short of max_new_tokens")
+    want = {"flash_decode_paged": seen["decode"] * L,
+            "topk_router_replicated": (seen["prefill"] + seen["decode"]) * L,
+            "moe_gemm": 3 * (seen["prefill"] + seen["decode"]) * L}
+    if launches != want:
+        raise AssertionError(f"engine[{label}]: launches {launches} != path {want}")
+    return dict(launches=launches, tokens_per_s=gen_tokens / wall)
+
+
+def _report_trace(prof, wall_s: float, label: str) -> None:
+    """Device busy share over the traced run and the kernels that took the
+    most device time (summed over launches).  Only the device's own events
+    count: an operator's row repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            rows.append((us, ev.count, ev.key))
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    if busy_ms == 0:
+        log(f"trace[{label}]: the profiler recorded no device time: busy share not measured")
+        return
+    log(f"trace[{label}]: wall_ms={1e3 * wall_s:.3f} device_busy_ms={busy_ms:.3f} "
+        f"busy_share={busy_ms / (1e3 * wall_s):.4f} idle_share={1 - busy_ms / (1e3 * wall_s):.4f}")
+    for us, count, key in sorted(rows, reverse=True)[:10]:
+        log(f"trace[{label}]:   {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
+
+
+# ----------------------------------------------------------------------------- main
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    build_logs = _build.build_all()
+    log(f"build: {len(build_logs)} kernels in {time.perf_counter() - t0:.1f} s")
+    for name, text in build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    cfg = get_config(ARCH).replace(num_layers=4)
+    log(f"config: {ARCH} d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}x"
+        f"{cfg.head_dim} experts={cfg.num_experts} top{cfg.moe_top_k} d_ff={cfg.moe_d_ff} "
+        f"vocab={cfg.vocab_size} dtype={cfg.dtype}; reduced: num_layers 48 -> 4")
+    timer = Timer(torch)
+    kernels = kernel_phase(torch, timer, cfg)
+    del timer
+    torch.cuda.empty_cache()
+    reference_phase(torch, cfg)
+
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"params: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B parameters, "
+        f"init {time.perf_counter() - t0:.3f} s")
+    main_run = engine_run(torch, cfg, params, n_req=16, max_new=32, kv_quant=None,
+                          label="bf16")
+    engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant="int8", label="int8 KV")
+    engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant=None, label="bf16 traced",
+               trace=True)
+    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    line = []
+    for name, k in kernels.items():
+        line.append({"name": name, "route": "cuda", "source": k["source"],
+                     "replaces": k["replaces"], "launches": main_run["launches"][name],
+                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    log(json.dumps({"kernels": line}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,98 @@
+"""Plain PyTorch versions of every kernel of the port (the numerics ground
+truth), mirroring ``repro.kernels.ref``.
+
+Each wrapper takes its plain version for tensors on the CPU; ``chip_smoke.py``
+holds each CUDA kernel against its plain version on the card.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+
+def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis with ties broken to the LOWEST index, like
+    ``lax.top_k`` and the kernels' iterative argmax (``torch.topk`` promises
+    no order among equal values).  A stable descending sort keeps equal
+    values in index order."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def ref_moe_gemm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Grouped expert GEMM.  xe: (E, C, D), w: (E, D, F) -> (E, C, F) in f32
+    accumulation, cast back to xe.dtype."""
+    out = torch.einsum("ecd,edf->ecf", xe.float(), w.float())
+    return out.to(xe.dtype)
+
+
+def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    """Single-token GQA decode attention.
+    q: (B, Hq, D); k, v: (B, S, Hkv, D); lengths: (B,) valid KV length per row.
+    Returns (B, Hq, D); a row with length 0 is exactly zero."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float(), k.float()) * (d ** -0.5)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    mask = torch.arange(s, device=q.device)[None, :] < lengths[:, None]   # (B, S)
+    scores = scores.masked_fill(~mask[:, None, None, :], float("-inf"))
+    wts = torch.softmax(scores, dim=-1)
+    # a length-0 row has an all -inf score row (softmax -> NaN); the kernel
+    # contract is zeros there
+    wts = torch.where(lengths[:, None, None, None] > 0, wts, torch.zeros_like(wts))
+    out = torch.einsum("bhgs,bshd->bhgd", wts, v.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def ref_flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor, softcap: float = 0.0,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Paged single-token GQA decode attention (block-table indexed).
+    q: (B, Hq, D); k_pages, v_pages: (P, BS, Hkv, D) page pool; block_tables:
+    (B, NB) int32 physical page per logical block (page 0 is the garbage
+    page); lengths: (B,).  Optional per-page int8 scales (P,) f32."""
+    b = q.shape[0]
+    _, bs, hkv, d = k_pages.shape
+    nb = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[bt].float()                      # (B, NB, BS, Hkv, D)
+    v = v_pages[bt].float()
+    if k_scale is not None:
+        k = k * k_scale[bt][:, :, None, None, None]
+    if v_scale is not None:
+        v = v * v_scale[bt][:, :, None, None, None]
+    k = k.reshape(b, nb * bs, hkv, d)
+    v = v.reshape(b, nb * bs, hkv, d)
+    return ref_flash_decode(q, k, v, lengths, softcap)
+
+
+def ref_topk_router_replicated(logits: torch.Tensor, k: int,
+                               replica_slots: torch.Tensor,
+                               replica_count: torch.Tensor, num_slots: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor, torch.Tensor]:
+    """Replica-aware fused router: softmax, top-k (lowest index on ties),
+    renormalised gates, logical -> physical slot round-robin on the global
+    selection index ((t*k + j) mod n_replicas), and per-slot capacity
+    positions in token-major order.  Returns (gates (T,k) f32, ids (T,k)
+    logical, slots (T,k) physical, pos (T,k)), the integers as int32."""
+    t, e = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, ids = top_k(probs, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    sel = (torch.arange(t, device=logits.device)[:, None] * k
+           + torch.arange(k, device=logits.device)[None, :])
+    ridx = sel % torch.clamp(replica_count.long()[ids], min=1)
+    slots = replica_slots.long()[ids, ridx]
+    onehot = (slots.reshape(-1, 1)
+              == torch.arange(num_slots, device=logits.device)[None, :]).int()
+    pos_flat = (torch.cumsum(onehot, dim=0) - 1) * onehot
+    pos = pos_flat.sum(-1).reshape(t, k)
+    return gates, ids.int(), slots.int(), pos.int()

@@ -1,0 +1,226 @@
+"""GQA attention, ported from ``repro.models.attention``.
+
+* Full-sequence call (prefill): q over the whole sequence, causal mask;
+  plain PyTorch (einsum + softmax, chunked over queries for long inputs),
+  as the reference computes it outside any kernel.
+* Paged decode call: one new token per row appended into a paged KV pool
+  (``serving.kvcache.PagedKVCache``), then paged flash-decode.
+
+Conventions kept from the reference: the finite ``NEG_INF`` mask, the
+``CHUNK_THRESHOLD`` / ``Q_CHUNK`` switch to chunked prefill, the kernel
+called with ``lengths + 1`` after the append, and the monotone int8 page
+scale.  MLA, sliding-window decode and the sequence-sharded paths are later
+slices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ops import paged_decode_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_rope, normal, softcap
+
+NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free in bf16
+
+# materialize full (Sq, Skv) score tensors only below this element count;
+# larger sequences take the chunked-query path
+CHUNK_THRESHOLD = 1 << 22
+Q_CHUNK = 512
+
+
+def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = d ** -0.5
+    dt = cfg.adtype
+    p = {
+        "wq": normal(gen, (d, hq, hd), s, dt),
+        "wk": normal(gen, (d, hkv, hd), s, dt),
+        "wv": normal(gen, (d, hkv, hd), s, dt),
+        "wo": normal(gen, (hq, hd, d), (hq * hd) ** -0.5, dt),
+    }
+    if cfg.qkv_bias:
+        for name, h in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p[name] = torch.zeros((h, hd), dtype=dt, device=gen.device)
+    return p
+
+
+def _qkv(params: dict, cfg: ModelConfig, x: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    if cfg.qkv_bias:
+        q = q + params["bq"]
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return q, k, v
+
+
+def _expand_kv(k: torch.Tensor, hq: int) -> torch.Tensor:
+    """(B,S,Hkv,D) -> (B,S,Hq,D) by repeating each KV head over its Q group."""
+    hkv = k.shape[2]
+    if hkv != hq:
+        k = torch.repeat_interleave(k, hq // hkv, dim=2)
+    return k
+
+
+def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+    """q: (B,Sq,Hq,D)  k,v: (B,Skv,Hkv,D)  mask: broadcastable to (B,Sq,Skv)."""
+    d = q.shape[-1]
+    hq = q.shape[2]
+    k = _expand_kv(k, hq)
+    v = _expand_kv(v, hq)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (d ** -0.5)
+    if cfg.attn_logit_softcap > 0:
+        scores = softcap(scores, cfg.attn_logit_softcap)
+    scores = torch.where(mask[:, None, :, :], scores,
+                         torch.tensor(NEG_INF, device=scores.device))
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def _causal_mask(sq: int, skv: int, window: int, device) -> torch.Tensor:
+    i = torch.arange(sq, device=device)[:, None] + (skv - sq)  # absolute query positions
+    j = torch.arange(skv, device=device)[None, :]
+    m = j <= i
+    if window > 0:
+        m &= j > (i - window)
+    return m[None]  # (1, Sq, Skv)
+
+
+def _sdpa_chunked(cfg: ModelConfig, q, k, v, window: int, causal: bool = True,
+                  q_chunk: int = Q_CHUNK) -> torch.Tensor:
+    """Memory-bounded full-sequence attention: loop over query chunks so
+    only a (q_chunk, Skv) score block is live at a time."""
+    b, sq, hq, dh = q.shape
+    skv = k.shape[1]
+    qc = min(q_chunk, sq)
+    if sq % qc != 0:
+        qc = sq  # ragged: fall back to one chunk
+    k = _expand_kv(k, hq)
+    v = _expand_kv(v, hq)
+    scale = dh ** -0.5
+    j = torch.arange(skv, device=q.device)[None, :]
+    outs = []
+    for ci in range(sq // qc):
+        qb = q[:, ci * qc:(ci + 1) * qc]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qb, k).float() * scale
+        if cfg.attn_logit_softcap > 0:
+            scores = softcap(scores, cfg.attn_logit_softcap)
+        i = (ci * qc + torch.arange(qc, device=q.device))[:, None] + (skv - sq)
+        m = (j <= i) if causal else torch.ones((qc, skv), dtype=torch.bool,
+                                               device=q.device)
+        if window > 0:
+            m &= j > (i - window)
+        bias = torch.where(m, 0.0, NEG_INF).to(torch.float32)
+        scores = scores + bias[None, None]
+        w = torch.softmax(scores, dim=-1).to(q.dtype)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", w, v))
+    return torch.cat(outs, dim=1)
+
+
+def _sdpa_auto(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
+    """Pick chunked vs. materialized scores by footprint."""
+    if q.shape[1] * k.shape[1] > CHUNK_THRESHOLD and q.shape[1] > 1:
+        return _sdpa_chunked(cfg, q, k, v, window, causal)
+    mask = (_causal_mask(q.shape[1], k.shape[1], window, q.device) if causal else
+            torch.ones((1, q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device))
+    return _sdpa(cfg, q, k, v, mask)
+
+
+def gqa_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor, local: bool, cache: Optional[dict] = None):
+    """Prefill attention.  Returns (out, cache_or_None); the given cache
+    ({"k": (B,S_max,Hkv,D), "v": ...}) is written in place at positions
+    [0, S) — one fewer copy than the reference's functional update."""
+    q, k, v = _qkv(params, cfg, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    window = cfg.sliding_window if local else 0
+    if cache is not None:
+        s = k.shape[1]
+        cache["k"][:, :s] = k.to(cache["k"].dtype)
+        cache["v"][:, :s] = v.to(cache["v"].dtype)
+    out = _sdpa_auto(cfg, q, k, v, window, causal=True)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, cache
+
+
+def _paged_append_int8(pages, scales, phys, off, new):
+    """Append one token per row into int8 pages with per-page scales, in
+    place.  pages: (P, BS, Hkv, D) int8; scales: (P,) f32; phys/off: (B,)
+    page id / in-page offset; new: (B, Hkv, D).  The scale update is
+    MONOTONE (never shrinks), so when the new token fits the old scale the
+    requantize round-trips existing entries exactly (round(q*s/s) == q)."""
+    rows = torch.arange(phys.shape[0], device=phys.device)
+    blk = pages[phys].float() * scales[phys][:, None, None, None]
+    blk[rows, off] = new.float()
+    amax = torch.amax(torch.abs(blk), dim=(1, 2, 3))
+    new_scale = torch.maximum(scales[phys], torch.clamp(amax, min=1e-12) / 127.0)
+    q = torch.clamp(torch.round(blk / new_scale[:, None, None, None]),
+                    -127, 127).to(torch.int8)
+    pages[phys] = q
+    scales[phys] = new_scale
+
+
+def gqa_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+                     block_tables: torch.Tensor, lengths: torch.Tensor,
+                     local: bool, use_kernel: bool = False):
+    """One-token decode against a paged KV pool (one layer's pages).
+
+    x: (B,1,d); cache: {"k": (P,BS,Hkv,D), "v": ..., optional "k_scale"/
+    "v_scale": (P,) f32 for int8 pages}; block_tables: (B,NB) physical page
+    per logical block (page 0 = reserved garbage page — free rows write
+    there); lengths: (B,) tokens resident = write position.  The pages are
+    updated IN PLACE (the reference returns new arrays); returns
+    (out, cache).
+
+    The host guarantees (PagedKVCache.prepare_append) that active rows' tail
+    pages are private (copy-on-write) and allocated; inactive rows carry
+    lengths=0 and all-zero table rows, so their scatter lands in the garbage
+    page and their (discarded) output attends only to it."""
+    q, k_new, v_new = _qkv(params, cfg, x)
+    q = apply_rope(q, lengths[:, None], cfg.rope_theta)
+    k_new = apply_rope(k_new, lengths[:, None], cfg.rope_theta)
+
+    b = x.shape[0]
+    bs_blk = cache["k"].shape[1]
+    nb = block_tables.shape[1]
+    lengths_l = lengths.long()
+    bidx = lengths_l // bs_blk
+    off = lengths_l % bs_blk
+    phys = block_tables.long()[torch.arange(b, device=x.device), bidx]   # (B,)
+    quantized = "k_scale" in cache
+
+    if quantized:
+        _paged_append_int8(cache["k"], cache["k_scale"], phys, off, k_new[:, 0])
+        _paged_append_int8(cache["v"], cache["v_scale"], phys, off, v_new[:, 0])
+    else:
+        cache["k"][phys, off] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][phys, off] = v_new[:, 0].to(cache["v"].dtype)
+
+    windowed = local and cfg.sliding_window > 0
+    if use_kernel and not windowed:
+        o = paged_decode_attention(
+            q[:, 0], cache["k"], cache["v"], block_tables, lengths + 1,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"),
+            softcap=float(cfg.attn_logit_softcap))
+        out = o[:, None].to(x.dtype)
+    else:
+        bt = block_tables.long()
+        kb = cache["k"][bt]                                  # (B,NB,BS,Hkv,D)
+        vb = cache["v"][bt]
+        if quantized:
+            kb = kb.float() * cache["k_scale"][bt][..., None, None, None]
+            vb = vb.float() * cache["v_scale"][bt][..., None, None, None]
+        hkv, d = cache["k"].shape[2], cache["k"].shape[3]
+        kb = kb.reshape(b, nb * bs_blk, hkv, d)
+        vb = vb.reshape(b, nb * bs_blk, hkv, d)
+        j = torch.arange(nb * bs_blk, device=x.device)[None, :]
+        mask = j <= lengths_l[:, None]
+        if windowed:
+            mask &= j > (lengths_l[:, None] - cfg.sliding_window)
+        out = _sdpa(cfg, q, kb.to(q.dtype), vb.to(q.dtype), mask[:, None, :])
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, cache

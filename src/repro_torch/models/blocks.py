@@ -1,0 +1,59 @@
+"""Per-layer decoder blocks, ported from ``repro.models.blocks`` for
+attention-mixer (GQA) layers: pre-norm -> attention -> residual -> pre-norm
+-> FFN/MoE -> residual.  Block params are plain dicts; a stack of L layers
+is the same dict with a leading L axis (models/model.py).  Mamba, cross-
+attention and encoder blocks wait for their slices.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ffn_apply, init_ffn, init_rms_norm, rms_norm
+
+
+def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool) -> dict:
+    """An attention-mixer block; ``gen`` draws on the target device."""
+    p = {
+        "attn_norm": init_rms_norm(cfg.d_model, cfg.adtype, gen.device),
+        "attn": attn.init_gqa(gen, cfg),
+        "ffn_norm": init_rms_norm(cfg.d_model, cfg.adtype, gen.device),
+    }
+    if is_moe_layer:
+        p["moe"] = moe_lib.init_moe(gen, cfg)
+    else:
+        p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.adtype)
+    return p
+
+
+def _ffn_half(p: dict, cfg: ModelConfig, x, is_moe_layer: bool, placement,
+              dispatch_mode: str, stats: bool):
+    h = rms_norm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
+    aux = {}
+    if is_moe_layer:
+        y, aux = moe_lib.moe_apply(p["moe"], cfg, h, placement, dispatch_mode, stats)
+    else:
+        y = ffn_apply(p["ffn"], h)
+    return x + y, aux
+
+
+def attn_block_full(p: dict, cfg: ModelConfig, x, positions, is_local: bool, cache,
+                    is_moe_layer: bool, placement, dispatch_mode: str, stats: bool):
+    h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
+    a, new_cache = attn.gqa_full(p["attn"], cfg, h, positions, is_local, cache)
+    x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
+    return x, new_cache, aux
+
+
+def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
+                            lengths, is_local: bool, is_moe_layer: bool, placement,
+                            dispatch_mode: str, stats: bool,
+                            use_kernel: bool = False):
+    """One decode step of a block against one layer's paged KV pool."""
+    h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
+    a, new_cache = attn.gqa_decode_paged(p["attn"], cfg, h, cache, block_tables,
+                                         lengths, is_local, use_kernel)
+    x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
+    return x, new_cache, aux

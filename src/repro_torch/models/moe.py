@@ -1,0 +1,253 @@
+"""Mixture-of-Experts layer with placement-aware, replica-splitting
+dispatch, ported from ``repro.models.moe``.
+
+A placement is a slot map over S = E + R physical slots (R >= 0 replicas of
+hot experts).  Expert weights are stored in SLOT order, so relocating or
+replicating an expert is a gather on the expert axis.  The router works in
+logical-expert space and maps selected ids to slots round-robin over an
+expert's replicas (``ExpertPlacement.dispatch_slots``).
+
+Three dispatch modes with the same numerics:
+  * "dense"  — GShard one-hot einsum dispatch (the paper-faithful baseline);
+  * "gather" — an (S, C) token-index table, gather, grouped GEMM, scatter-add;
+  * "fused"  — "gather" with the replica-aware router kernel and three
+               grouped-GEMM kernels (kernels/ops.py).
+The capacity rule (token-major, then selection; ``_capacity`` rounds up to
+a multiple of 8) and the stats (``expert_ids``, ``expert_counts``,
+``dropped_frac``) match the reference exactly.  The combine is a
+scatter-add (``index_add_``); on CUDA it sums in no fixed order, so outputs
+agree with the reference within float tolerance, not bit for bit.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import expert_ffn, route_replicated
+from repro_torch.kernels.ref import top_k
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import ffn_apply, init_ffn, normal
+
+
+class ExpertPlacement(NamedTuple):
+    """Replicated expert placement over S = E + R physical slots.
+
+    ``inv[s]`` = logical expert in slot s (every expert holds >= 1 slot).
+    ``perm[e]`` = primary (lowest) slot of expert e.  ``replica_slots[e, r]``
+    enumerates e's slots, padded by repeating the primary;
+    ``replica_count[e]`` is the true copy count.  R=0 is a permutation."""
+    perm: torch.Tensor            # (E,) int32 primary slot per logical expert
+    inv: torch.Tensor             # (S,) int32 logical expert per slot
+    replica_slots: torch.Tensor   # (E, max_rep) int32, padded with the primary
+    replica_count: torch.Tensor   # (E,) int32
+
+    @property
+    def num_slots(self) -> int:
+        return self.inv.shape[0]
+
+    @property
+    def num_experts(self) -> int:
+        return self.perm.shape[0]
+
+    @staticmethod
+    def identity(num_experts: int, device=None) -> "ExpertPlacement":
+        eye = torch.arange(num_experts, dtype=torch.int32, device=device)
+        return ExpertPlacement(perm=eye, inv=eye, replica_slots=eye[:, None],
+                               replica_count=torch.ones_like(eye))
+
+    @staticmethod
+    def from_perm(perm, device=None) -> "ExpertPlacement":
+        perm = torch.as_tensor(perm, dtype=torch.int32, device=device)
+        inv = torch.zeros_like(perm)
+        inv[perm.long()] = torch.arange(perm.shape[0], dtype=torch.int32,
+                                        device=perm.device)
+        return ExpertPlacement(perm=perm, inv=inv, replica_slots=perm[:, None],
+                               replica_count=torch.ones_like(perm))
+
+    @staticmethod
+    def from_slot_map(inv, num_experts: int, device=None) -> "ExpertPlacement":
+        """Build from a slot map (S,) slot -> logical expert."""
+        inv = torch.as_tensor(inv, dtype=torch.int32, device=device)
+        s, e = inv.shape[0], num_experts
+        max_rep = s - e + 1                      # static copy-count bound
+        onehot = (inv[None, :] == torch.arange(e, dtype=torch.int32,
+                                               device=inv.device)[:, None])  # (E,S)
+        count = onehot.sum(1).to(torch.int32)
+        rank = torch.cumsum(onehot.int(), dim=1) * onehot            # 1-based per slot
+        slots_row = torch.arange(s, dtype=torch.int32, device=inv.device)[None, :]
+        absent = torch.tensor(s, dtype=torch.int32, device=inv.device)
+        cols = [torch.where(rank == r + 1, slots_row, absent).amin(1)
+                for r in range(max_rep)]
+        tbl = torch.stack(cols, dim=1)
+        primary = tbl[:, 0]
+        tbl = torch.where(tbl == s, primary[:, None], tbl)
+        return ExpertPlacement(perm=primary.to(torch.int32), inv=inv,
+                               replica_slots=tbl.to(torch.int32),
+                               replica_count=count)
+
+    def dispatch_slots(self, expert_ids: torch.Tensor) -> torch.Tensor:
+        """Physical slot per selection with round-robin load splitting:
+        selection (t, j) goes to replica (t*k + j) mod n_replicas.
+        expert_ids: (T, k) logical -> (T, k) slots (int32)."""
+        t, k = expert_ids.shape
+        dev = expert_ids.device
+        ids = expert_ids.long()
+        sel = (torch.arange(t, device=dev)[:, None] * k
+               + torch.arange(k, device=dev)[None, :])
+        ridx = sel % torch.clamp(self.replica_count.long()[ids], min=1)
+        return self.replica_slots[ids, ridx].to(torch.int32)
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    s_in, s_out = d ** -0.5, f ** -0.5
+    dt = cfg.adtype
+    p = {
+        "w_router": normal(gen, (d, e), s_in, torch.float32),
+        "w_gate": normal(gen, (e, d, f), s_in, dt),
+        "w_up": normal(gen, (e, d, f), s_in, dt),
+        "w_down": normal(gen, (e, f, d), s_out, dt),
+    }
+    if cfg.num_shared_experts > 0:
+        p["shared"] = init_ffn(gen, d, cfg.moe_d_ff * cfg.num_shared_experts, dt)
+    return p
+
+
+def router_probs(logits: torch.Tensor) -> torch.Tensor:
+    return torch.softmax(logits.float(), dim=-1)
+
+
+def top_k_gating(probs: torch.Tensor, k: int):
+    """Returns (gates (T,k) renormalized, expert ids (T,k)); ties go to the
+    lowest expert id, as ``lax.top_k``."""
+    gates, idx = top_k(probs, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    return gates, idx
+
+
+def _capacity(cfg: ModelConfig, num_tokens: int) -> int:
+    c = int(cfg.capacity_factor * cfg.moe_top_k * num_tokens / cfg.num_experts) + 1
+    # round capacity up to a multiple of 8, as the reference does
+    return max(8, -(-c // 8) * 8)
+
+
+def _expert_ffn(params: dict, xe: torch.Tensor) -> torch.Tensor:
+    """xe: (E, C, d) -> (E, C, d) gated FFN per expert (grouped GEMM)."""
+    gate = torch.einsum("ecd,edf->ecf", xe, params["w_gate"])
+    up = torch.einsum("ecd,edf->ecf", xe, params["w_up"])
+    act = F.silu(gate.float()).to(xe.dtype) * up
+    return torch.einsum("ecf,efd->ecd", act, params["w_down"])
+
+
+def _dispatch_tables(slot_idx: torch.Tensor, num_slots: int, capacity: int):
+    """Capacity assignment shared by the dense and gather modes.
+    slot_idx: (T, k) physical slot per selection.  Returns (pos (T,k)
+    position-in-slot, >= capacity if dropped; keep (T,k) bool).
+    Priority: earlier tokens first, then lower k — the GShard rule."""
+    t, k = slot_idx.shape
+    flat = slot_idx.reshape(-1).long()                               # token-major
+    onehot = (flat[:, None] == torch.arange(num_slots, device=flat.device)[None, :]).int()
+    pos_flat = (torch.cumsum(onehot, dim=0) - 1) * onehot
+    pos = pos_flat.sum(-1).reshape(t, k).to(torch.int32)
+    return pos, pos < capacity
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """One-hot that maps out-of-range indices to all-zero rows (as
+    ``jax.nn.one_hot``; ``F.one_hot`` raises on them)."""
+    return (idx.long()[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
+              placement: Optional[ExpertPlacement] = None,
+              dispatch_mode: str = "dense", return_stats: bool = False):
+    """x: (B, S, d).  Returns (y, aux): aux carries the router losses and,
+    when return_stats, per-expert activation counts, per-token expert ids
+    and the dropped fraction."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.moe_top_k
+    xf = x.reshape(t, d)
+    dev = x.device
+    if placement is None:
+        placement = ExpertPlacement.identity(e, device=dev)
+
+    logits = xf.float() @ params["w_router"]
+    probs = router_probs(logits)                                   # logical space
+    ns = placement.num_slots                                       # S = E + R
+    cap = _capacity(cfg, t)
+    if dispatch_mode == "fused":
+        gates, expert_ids, slot_idx, pos = route_replicated(
+            logits, k, placement.replica_slots, placement.replica_count, ns)
+        keep = pos < cap
+    else:
+        gates, expert_ids = top_k_gating(probs, k)                 # (T,k) logical
+        slot_idx = placement.dispatch_slots(expert_ids)            # physical slots
+        pos, keep = _dispatch_tables(slot_idx, ns, cap)
+    gates = gates.to(x.dtype)
+
+    if dispatch_mode == "dense":
+        oh_e = _one_hot(slot_idx, ns, x.dtype) * keep[..., None]
+        oh_c = _one_hot(pos, cap, x.dtype)
+        dispatch = torch.einsum("tke,tkc->tec", oh_e, oh_c)
+        combine = torch.einsum("tke,tkc,tk->tec", oh_e, oh_c, gates)
+        xe = torch.einsum("tec,td->ecd", dispatch, xf)
+        ye = _expert_ffn(params, xe)
+        y = torch.einsum("tec,ecd->td", combine, ye)
+    elif dispatch_mode in ("gather", "fused"):
+        # token-index table (S, C): which token sits in slot (s, c)
+        tok_ids = torch.arange(t, dtype=torch.int32, device=dev).repeat_interleave(k)
+        slot_flat = torch.where(keep, slot_idx.long(), ns).reshape(-1)  # dropped -> overflow row S
+        pos_flat = torch.where(keep, pos.long(), 0).reshape(-1)
+        table = torch.full((ns + 1, cap), t, dtype=torch.int32, device=dev)  # t == "no token"
+        table[slot_flat, pos_flat] = tok_ids
+        table = table[:ns]                                         # (S, C)
+        valid = table < t
+        src = table.clamp(max=t - 1).long()
+        xe = torch.where(valid[..., None], xf[src], 0).to(x.dtype)
+        if dispatch_mode == "fused":
+            ye = expert_ffn(params, xe)                            # 3x moe_gemm
+        else:
+            ye = _expert_ffn(params, xe)
+        # combine: scatter-add expert outputs back, weighted by gate
+        gate_tbl = torch.zeros((ns + 1, cap), dtype=x.dtype, device=dev)
+        gate_tbl[slot_flat, pos_flat] = (gates * keep).reshape(-1)
+        gate_tbl = gate_tbl[:ns]
+        contrib = ((ye * gate_tbl[..., None]).reshape(ns * cap, d)
+                   * valid.reshape(-1, 1).to(x.dtype))
+        y = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add_(
+            0, src.reshape(-1), contrib)
+    else:
+        raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
+
+    if cfg.num_shared_experts > 0:
+        y = y + ffn_apply(params["shared"], xf)
+
+    # ---- router aux (always fp32) -------------------------------------------
+    ids_flat = expert_ids.reshape(-1).long()
+    me = probs.mean(0)                                             # (E,) mean prob, logical
+    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, ids_flat, torch.ones_like(ids_flat, dtype=torch.float32)) / (t * k)
+    aux = {
+        "load_balance_loss": e * torch.sum(me * ce),
+        "router_z_loss": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
+    }
+    if return_stats:
+        aux["expert_counts"] = torch.bincount(ids_flat, minlength=e).to(torch.int32)
+        aux["expert_ids"] = expert_ids.reshape(b, s, k).to(torch.int32)
+        aux["dropped_frac"] = 1.0 - keep.float().mean()
+    return y.reshape(b, s, d), aux
+
+
+def permute_expert_weights(params: dict, old: ExpertPlacement,
+                           new: ExpertPlacement) -> dict:
+    """Relocate stacked expert weights from placement ``old`` to ``new``:
+    each new slot gathers its expert's weights from that expert's primary
+    slot under ``old`` (growing E -> E+R slots materializes the replicas)."""
+    gather_idx = old.perm.long()[new.inv.long()]
+    out = dict(params)
+    for name in ("w_gate", "w_up", "w_down"):
+        out[name] = params[name][gather_idx]
+    return out

@@ -1,0 +1,230 @@
+"""Paged KV cache of the port, ported from ``repro.serving.kvcache``.
+
+``PagedKVCache`` is a vLLM-style paged device cache: a global pool of
+``block_size``-token pages, per-slot block tables, refcounted copy-on-write
+prefix sharing keyed by ``core.prefix_cache.block_hashes``, and optional
+int8 page storage with per-(layer, page) scales.  The pages are device
+tensors and are updated IN PLACE (``index_copy``-style slice assignment and
+the decode step's appends), where the reference rebuilt whole arrays; the
+block tables, refcounts and free lists stay in numpy on the host.
+
+``SlotKVCache`` and ``BlockLedger`` join with the slot layout (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import heapq
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import device as devlib
+from repro_torch.core.prefix_cache import block_hashes
+from repro_torch.models.config import ModelConfig
+from repro_torch.training.compression import quantize_int8
+
+
+class PagedKVCache:
+    """Paged device KV cache for homogeneous GQA attention stacks.
+
+    Layout: per-layer K/V pages of shape (L, P, BS, Hkv, D) where P is the
+    global pool size and BS the block size.  Physical page 0 is a reserved
+    garbage page: free/inactive slots' block-table rows point at it, so the
+    full-batch decode scatter lands harmlessly there.  Full prompt blocks are
+    refcounted and shared across slots keyed by the same chained block hashes
+    the prefix cache uses (causal attention => identical prefixes produce
+    identical K/V pages); a prefix hit pins the resident pages instead of
+    re-writing them.  Optional int8 storage keeps a per-(layer, page) scale,
+    quantized with training/compression.py::quantize_int8.
+    """
+
+    def __init__(self, model_cfg: ModelConfig, max_slots: int, max_seq: int,
+                 *, block_size: int = 16, total_blocks: Optional[int] = None,
+                 dtype=None, quantize: bool = False, device=None):
+        cfg = model_cfg
+        if (cfg.attention_type != "gqa" or cfg.is_ssm or cfg.is_hybrid
+                or cfg.is_encoder_decoder):
+            raise ValueError("PagedKVCache supports homogeneous GQA stacks only")
+        if cfg.is_moe and (cfg.first_k_dense != 0 or cfg.moe_every != 1):
+            raise ValueError("PagedKVCache requires a homogeneous layer stack "
+                             "(first_k_dense == 0, moe_every == 1)")
+        if max_slots <= 1 or block_size <= 0:
+            raise ValueError("PagedKVCache needs max_slots > 1 and block_size > 0")
+        self.device = devlib.resolve(device)
+        self.model_cfg = cfg
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.block_size = block_size
+        self.quantized = quantize
+        self.max_blocks = -(-max_seq // block_size)
+        self.usable_blocks = total_blocks or max_slots * self.max_blocks
+        if self.usable_blocks < max_slots * self.max_blocks:
+            raise ValueError("pool must cover max_slots full-length sequences "
+                             "(admission is gated upstream by SchedulerCore "
+                             "block accounting)")
+        n_pages = self.usable_blocks + 1                      # + garbage page 0
+        L = cfg.num_layers
+        hkv, d = cfg.num_kv_heads, cfg.head_dim
+        store = torch.int8 if quantize else (dtype or cfg.adtype)
+        shape = (L, n_pages, block_size, hkv, d)
+        self.pages: Dict[str, torch.Tensor] = {
+            "k": torch.zeros(shape, dtype=store, device=self.device),
+            "v": torch.zeros(shape, dtype=store, device=self.device),
+        }
+        if quantize:
+            for name in ("k_scale", "v_scale"):
+                self.pages[name] = torch.zeros((L, n_pages), dtype=torch.float32,
+                                               device=self.device)
+
+        self.block_tables = np.zeros((max_slots, self.max_blocks), np.int32)
+        self.slot_len = np.zeros(max_slots, np.int64)
+        self._free_slots: List[int] = list(range(max_slots))
+        self._is_free = [True] * max_slots
+        self._free_blocks: List[int] = list(range(1, n_pages))
+        self._ref = np.zeros(n_pages, np.int32)
+        self._block_hash: Dict[int, int] = {}   # page -> chained block hash
+        self._hash_block: Dict[int, int] = {}   # chained block hash -> page
+        self._slot_nblocks = np.zeros(max_slots, np.int32)
+        self._slot_shared = np.zeros(max_slots, np.int32)
+        # counters for tests / metrics
+        self.shared_hits = 0
+
+    # --- pool geometry ----------------------------------------------------------
+    @property
+    def capacity_tokens(self) -> int:
+        return self.usable_blocks * self.block_size
+
+    @property
+    def blocks_used(self) -> int:
+        return self.usable_blocks - len(self._free_blocks)
+
+    # --- allocation -------------------------------------------------------------
+    def alloc(self, plen: int,
+              tokens: Optional[Sequence[int]] = None) -> Optional[int]:
+        """Allocate a slot plus pages for a `plen`-token prompt.  When `tokens`
+        (Python ints: ``block_hashes`` hashes tuples, and a tensor hashes by
+        identity) is given, leading full blocks already resident are pinned
+        (refcount++) instead of allocated; ``write_prefill`` skips them."""
+        if not self._free_slots:
+            return None
+        n_total = -(-plen // self.block_size)
+        hashes = block_hashes(tokens[:plen], self.block_size) \
+            if tokens is not None else []
+        n_shared = 0
+        for h in hashes:
+            if h in self._hash_block:
+                n_shared += 1
+            else:
+                break
+        if n_total - n_shared > len(self._free_blocks):
+            return None
+        slot = heapq.heappop(self._free_slots)
+        self._is_free[slot] = False
+        self.block_tables[slot, :] = 0
+        for i in range(n_total):
+            if i < n_shared:
+                blk = self._hash_block[hashes[i]]
+                self._ref[blk] += 1
+                self.shared_hits += 1
+            else:
+                blk = heapq.heappop(self._free_blocks)
+                self._ref[blk] = 1
+                if i < len(hashes) and hashes[i] not in self._hash_block:
+                    self._hash_block[hashes[i]] = blk
+                    self._block_hash[blk] = hashes[i]
+            self.block_tables[slot, i] = blk
+        self._slot_nblocks[slot] = n_total
+        self._slot_shared[slot] = n_shared
+        self.slot_len[slot] = 0
+        return slot
+
+    def _deref(self, blk: int) -> None:
+        self._ref[blk] -= 1
+        if self._ref[blk] == 0:
+            h = self._block_hash.pop(blk, None)
+            if h is not None and self._hash_block.get(h) == blk:
+                del self._hash_block[h]
+            heapq.heappush(self._free_blocks, blk)
+
+    def free(self, slot: int) -> None:
+        if self._is_free[slot]:
+            return
+        for i in range(int(self._slot_nblocks[slot])):
+            self._deref(int(self.block_tables[slot, i]))
+        self.block_tables[slot, :] = 0
+        self._slot_nblocks[slot] = 0
+        self._slot_shared[slot] = 0
+        self.slot_len[slot] = 0
+        self._is_free[slot] = True
+        heapq.heappush(self._free_slots, slot)
+
+    # --- device writes ----------------------------------------------------------
+    def _quant(self, blocks: torch.Tensor):
+        """Per-(layer, page) int8 quantization via vmapped quantize_int8."""
+        L, m = blocks.shape[:2]
+        q, scale = torch.vmap(quantize_int8)(blocks.reshape(L * m, -1))
+        return q.reshape(blocks.shape), scale.reshape(L, m)
+
+    def write_prefill(self, slot: int, slot_cache) -> None:
+        """Copy a batch=1 prefill cache ({"layers": {"k": (L,1,S,Hkv,D)}})
+        into this slot's non-shared pages.  Shared (prefix-hit) pages were
+        pinned by `alloc` and are NOT re-written — that is the point."""
+        bs = self.block_size
+        start = int(self._slot_shared[slot])
+        n = int(self._slot_nblocks[slot])
+        if n == start:
+            return
+        phys = torch.as_tensor(self.block_tables[slot, start:n].astype(np.int64),
+                               device=self.device)
+        for name in ("k", "v"):
+            src = slot_cache["layers"][name]                 # (L, 1, S, Hkv, D)
+            need = n * bs
+            if src.shape[2] < need:
+                src = torch.nn.functional.pad(src, (0, 0, 0, 0, 0, need - src.shape[2]))
+            L = src.shape[0]
+            blocks = src[:, 0, start * bs:n * bs].reshape(
+                L, n - start, bs, src.shape[3], src.shape[4])
+            if self.quantized:
+                q, scale = self._quant(blocks)
+                self.pages[name][:, phys] = q
+                self.pages[name + "_scale"][:, phys] = scale
+            else:
+                self.pages[name][:, phys] = blocks.to(self.pages[name].dtype)
+
+    def prepare_append(self, slot: int) -> None:
+        """Make the page holding position `slot_len` writable before a decode
+        step: allocate a fresh private page at a block boundary, and
+        copy-on-write if the target page is shared (refcount > 1)."""
+        pos = min(int(self.slot_len[slot]), self.max_seq - 1)
+        bidx = pos // self.block_size
+        n = int(self._slot_nblocks[slot])
+        if bidx >= n:
+            if bidx != n:
+                raise RuntimeError("append skipped a block")
+            if not self._free_blocks:
+                raise RuntimeError("paged pool exhausted (admission bug)")
+            blk = heapq.heappop(self._free_blocks)
+            self._ref[blk] = 1
+            self.block_tables[slot, bidx] = blk
+            self._slot_nblocks[slot] = n + 1
+            return
+        blk = int(self.block_tables[slot, bidx])
+        if self._ref[blk] > 1:                               # copy-on-write
+            if not self._free_blocks:
+                raise RuntimeError("paged pool exhausted (admission bug)")
+            nb = heapq.heappop(self._free_blocks)
+            self._ref[nb] = 1
+            for t in self.pages.values():
+                t[:, nb] = t[:, blk]
+            self._deref(blk)
+            self.block_tables[slot, bidx] = nb
+            if bidx < self._slot_shared[slot]:
+                self._slot_shared[slot] = bidx
+
+    # --- device-side views ------------------------------------------------------
+    def device_tables(self) -> torch.Tensor:
+        return torch.as_tensor(self.block_tables, dtype=torch.int32, device=self.device)
+
+    def positions(self) -> torch.Tensor:
+        return torch.as_tensor(np.minimum(self.slot_len, self.max_seq - 1),
+                               dtype=torch.int32, device=self.device)

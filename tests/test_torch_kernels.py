@@ -1,0 +1,318 @@
+"""The port's kernel layer on the CPU: each plain PyTorch version
+(``repro_torch.kernels.ref``, which the wrappers compute for CPU tensors) is
+held against the reference's Pallas kernel in interpret mode and its
+``ref.py`` oracle, on the same numpy inputs.
+
+Tolerances are the reference's own (tests/test_kernels.py): f32
+rtol=atol=2e-4, bf16 5e-2; integer outputs (expert ids, slots, capacity
+positions) must be exactly equal.  The CUDA kernels themselves run only on
+the card and are held against these plain versions by chip_smoke.py.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode_paged as jax_flash_decode_paged
+from repro.kernels.moe_gemm import moe_gemm as jax_moe_gemm
+from repro.kernels.topk_router import topk_router_replicated as jax_router
+from repro.models.moe import ExpertPlacement as JaxPlacement
+from repro.training.compression import quantize_int8 as jax_quantize_int8
+from repro_torch import device as devlib
+from repro_torch.kernels import (flash_decode_paged, moe_gemm, ref,
+                                 reset_launch_counts, topk_router_replicated)
+from repro_torch.models.moe import ExpertPlacement
+from repro_torch.training.compression import quantize_int8
+
+REPO = Path(__file__).resolve().parents[1]
+TOL = {"float32": dict(rtol=2e-4, atol=2e-4), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _as_dtype(x: np.ndarray, dtype: str) -> np.ndarray:
+    """Round through the working dtype once, in JAX, and return exact f32
+    values: both packages then start from identical numbers."""
+    return np.array(jnp.asarray(x, dtype).astype(jnp.float32))
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch CPU tensor."""
+    return jnp.asarray(x, dtype), torch.from_numpy(np.ascontiguousarray(x)).to(TORCH_DT[dtype])
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.float().numpy() if t.is_floating_point() else t.numpy()
+    return np.asarray(t, np.float32) if jnp.issubdtype(t.dtype, jnp.floating) else np.asarray(t)
+
+
+# --- grouped expert GEMM -------------------------------------------------------
+
+@pytest.mark.parametrize("e,c,d,f", [(2, 8, 16, 32), (4, 96, 64, 160), (1, 200, 128, 96)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_gemm_plain_matches_pallas(e, c, d, f, dtype):
+    rng = np.random.default_rng(e * 1000 + c)
+    x = _as_dtype(rng.normal(size=(e, c, d)), dtype)
+    w = _as_dtype(rng.normal(size=(e, d, f)), dtype)
+    xj, xt = _pair(x, dtype)
+    wj, wt = _pair(w, dtype)
+    got = moe_gemm(xt, wt)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == (e, c, f)
+    np.testing.assert_allclose(_np(got), _np(jax_moe_gemm(xj, wj, interpret=True)),
+                               **TOL[dtype])
+    np.testing.assert_allclose(_np(got), _np(jref.ref_moe_gemm(xj, wj)), **TOL[dtype])
+
+
+def test_moe_gemm_zero_rows_stay_zero():
+    """Capacity padding rows are zero in, zero out."""
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(3, 16, 32)).astype(np.float32)
+    x[:, 5:] = 0
+    w = rng.normal(size=(3, 32, 24)).astype(np.float32)
+    out = _np(moe_gemm(torch.from_numpy(x), torch.from_numpy(w)))
+    assert (out[:, 5:] == 0).all()
+
+
+# --- paged flash-decode ----------------------------------------------------------
+
+def _paged_case(seed, b, hq, hkv, d, bs, nb, dtype="float32"):
+    """Random page pool + non-aliasing random block tables (page 0 reserved
+    as the garbage page, like PagedKVCache)."""
+    pool = b * nb + 1
+    rng = np.random.default_rng(seed)
+    q = _as_dtype(rng.normal(size=(b, hq, d)), dtype)
+    kp = _as_dtype(rng.normal(size=(pool, bs, hkv, d)), dtype)
+    vp = _as_dtype(rng.normal(size=(pool, bs, hkv, d)), dtype)
+    tables = (rng.permutation(pool - 1)[:b * nb] + 1).reshape(b, nb).astype(np.int32)
+    return q, kp, vp, tables
+
+
+def _both_paged(q, kp, vp, tables, lengths, dtype="float32", softcap=0.0,
+                k_scale=None, v_scale=None):
+    """(port plain version, Pallas interpret, reference oracle) outputs."""
+    lengths = np.asarray(lengths, np.int32)
+    qj, qt = _pair(q, dtype)
+    if kp.dtype == np.int8:
+        kj, kt, vj, vt = jnp.asarray(kp), torch.from_numpy(kp), jnp.asarray(vp), torch.from_numpy(vp)
+    else:
+        (kj, kt), (vj, vt) = _pair(kp, dtype), _pair(vp, dtype)
+    sj = dict(k_scale=None if k_scale is None else jnp.asarray(k_scale),
+              v_scale=None if v_scale is None else jnp.asarray(v_scale))
+    st = dict(k_scale=None if k_scale is None else torch.from_numpy(k_scale),
+              v_scale=None if v_scale is None else torch.from_numpy(v_scale))
+    got = flash_decode_paged(qt, kt, vt, torch.from_numpy(tables),
+                             torch.from_numpy(lengths), softcap=softcap, **st)
+    pallas = jax_flash_decode_paged(qj, kj, vj, jnp.asarray(tables), jnp.asarray(lengths),
+                                    softcap=softcap, interpret=True, **sj)
+    oracle = jref.ref_flash_decode_paged(qj, kj, vj, jnp.asarray(tables),
+                                         jnp.asarray(lengths), softcap=softcap, **sj)
+    return _np(got), _np(pallas), _np(oracle)
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,bs,nb", [(4, 4, 2, 16, 16, 4), (2, 8, 8, 32, 32, 3),
+                                              (3, 4, 1, 64, 16, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_paged_plain_matches_pallas(b, hq, hkv, d, bs, nb, dtype):
+    """Ragged lengths, a zero-length row and the exactly-full case: lengths
+    cover {0, mid-block, block boundary, nb*bs}."""
+    q, kp, vp, bt = _paged_case(b * 31 + nb, b, hq, hkv, d, bs, nb, dtype)
+    lens = np.linspace(0, nb * bs, b).astype(np.int32)
+    lens[b // 2] = bs
+    got, pallas, oracle = _both_paged(q, kp, vp, bt, lens, dtype)
+    np.testing.assert_allclose(got, pallas, **TOL[dtype])
+    np.testing.assert_allclose(got, oracle, **TOL[dtype])
+    assert (got[lens == 0] == 0).all()       # length 0 attends to nothing: exact zeros
+
+
+def test_flash_decode_paged_single_block_pages():
+    q, kp, vp, bt = _paged_case(7, 3, 4, 2, 16, 16, 1)
+    got, pallas, oracle = _both_paged(q, kp, vp, bt, [16, 1, 9])
+    np.testing.assert_allclose(got, pallas, **TOL["float32"])
+    np.testing.assert_allclose(got, oracle, **TOL["float32"])
+
+
+def test_flash_decode_paged_softcap():
+    q, kp, vp, bt = _paged_case(11, 2, 4, 2, 16, 16, 4)
+    got, pallas, oracle = _both_paged(q * 10, kp, vp, bt, [40, 64], softcap=30.0)
+    np.testing.assert_allclose(got, pallas, **TOL["float32"])
+    np.testing.assert_allclose(got, oracle, **TOL["float32"])
+
+
+def _int8_pages(pages: np.ndarray):
+    """Per-page int8 quantisation with the reference's quantize_int8."""
+    import jax
+    P = pages.shape[0]
+    q, scale = jax.vmap(jax_quantize_int8)(jnp.asarray(pages).reshape(P, -1))
+    return np.array(q).reshape(pages.shape), np.array(scale).reshape(P)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_paged_int8_pages(dtype):
+    q, kp, vp, bt = _paged_case(17, 4, 8, 2, 32, 16, 4, dtype)
+    kq, ksc = _int8_pages(kp)
+    vq, vsc = _int8_pages(vp)
+    got, pallas, oracle = _both_paged(q, kq, vq, bt, [0, 16, 33, 64], dtype,
+                                      k_scale=ksc, v_scale=vsc)
+    np.testing.assert_allclose(got, pallas, **TOL[dtype])
+    np.testing.assert_allclose(got, oracle, **TOL[dtype])
+    assert (got[0] == 0).all()
+
+
+def test_quantize_int8_matches_reference():
+    import jax
+    rng = np.random.default_rng(3)
+    x = (rng.normal(size=(6, 40)) * 3).astype(np.float32)
+    x[2] = 0.0                                   # all-zero rows keep the 1e-12 floor
+    qj, sj = jax.vmap(jax_quantize_int8)(jnp.asarray(x))
+    qt, st = torch.vmap(quantize_int8)(torch.from_numpy(x))
+    np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+
+
+# --- replica-aware router ------------------------------------------------------------
+
+def _router_both(logits: np.ndarray, k: int, inv=None, block_t: int = 64):
+    t, e = logits.shape
+    inv = np.arange(e, dtype=np.int32) if inv is None else np.asarray(inv, np.int32)
+    pj = JaxPlacement.from_slot_map(jnp.asarray(inv), e)
+    pt = ExpertPlacement.from_slot_map(inv, e, device="cpu")
+    for a, b_ in zip(pt, pj):                    # the placement tables themselves
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b_))
+    got = topk_router_replicated(torch.from_numpy(logits), k, pt.replica_slots,
+                                 pt.replica_count, len(inv))
+    pallas = jax_router(jnp.asarray(logits), k, pj.replica_slots, pj.replica_count,
+                        len(inv), block_t=block_t, interpret=True)
+    oracle = jref.ref_topk_router_replicated(jnp.asarray(logits), k, pj.replica_slots,
+                                             pj.replica_count, len(inv))
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=1e-5, atol=1e-6)
+        for g_, w_ in zip(got[1:], want[1:]):
+            assert g_.dtype == torch.int32
+            np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+    # the slot choice IS the placement's dispatch rule
+    np.testing.assert_array_equal(got[2].numpy(), pt.dispatch_slots(got[1]).numpy())
+    return got
+
+
+@pytest.mark.parametrize("t,e,k", [(64, 8, 1), (500, 16, 2), (128, 128, 6)])
+def test_router_identity_tables(t, e, k):
+    rng = np.random.default_rng(t + e)
+    _router_both((rng.normal(size=(t, e)) * 2).astype(np.float32), k)
+
+
+def _replicated_slot_map(rng, e: int, r: int) -> np.ndarray:
+    """Every expert in >= 1 slot plus r replicas of random experts, shuffled."""
+    return rng.permutation(np.concatenate([np.arange(e), rng.choice(e, r)])).astype(np.int32)
+
+
+@pytest.mark.parametrize("t,e,k,r", [(64, 8, 2, 2), (300, 16, 4, 8), (96, 128, 8, 8)])
+def test_router_replicated_slot_map(t, e, k, r):
+    rng = np.random.default_rng(t * e + r)
+    inv = _replicated_slot_map(rng, e, r)
+    got = _router_both((rng.normal(size=(t, e)) * 2).astype(np.float32), k, inv)
+    assert len(set(got[2].numpy().ravel()) - set(range(e + r))) == 0
+
+
+@pytest.mark.parametrize("inv", [None, "replicated"])
+def test_router_tied_logits_break_to_lowest_index(inv):
+    """Logits rounded to multiples of 0.5 over few distinct values: many
+    exactly equal probabilities, which must go to the lowest expert id in
+    every implementation."""
+    rng = np.random.default_rng(5)
+    t, e, k = 200, 16, 4
+    logits = (np.round(rng.normal(size=(t, e)) * 2) / 2).clip(-1, 1).astype(np.float32)
+    assert any(len(set(row)) < e - 4 for row in logits)            # ties present
+    slot_map = _replicated_slot_map(rng, e, 4) if inv else None
+    got = _router_both(logits, k, slot_map, block_t=32)
+    ids = got[1].numpy()
+    probs = torch.softmax(torch.from_numpy(logits), -1).numpy()
+    for row_p, row_i in zip(probs, ids):
+        for j in range(1, k):                     # equal values in increasing id order
+            if row_p[row_i[j]] == row_p[row_i[j - 1]]:
+                assert row_i[j] > row_i[j - 1]
+
+
+def test_router_positions_count_across_tokens():
+    """Positions keep counting across all T tokens, per physical slot."""
+    t, e = 256, 4
+    logits = np.zeros((t, e), np.float32)
+    logits[:, 0] = 10.0
+    _, ids, _, pos = _router_both(logits, 1, block_t=64)
+    assert (ids.numpy() == 0).all()
+    np.testing.assert_array_equal(pos.numpy().ravel(), np.arange(t))
+
+
+# --- wrappers: plain path on the CPU, never a silent fallback -------------------------
+
+def test_cpu_tensors_take_the_plain_path_without_launching():
+    reset_launch_counts()
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 8, 16)).astype(np.float32))
+    w = torch.from_numpy(rng.normal(size=(2, 16, 24)).astype(np.float32))
+    torch.testing.assert_close(moe_gemm(x, w), ref.ref_moe_gemm(x, w))
+    q, kp, vp, bt = _paged_case(2, 2, 4, 2, 16, 16, 2)
+    args = (torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+            torch.from_numpy(bt), torch.tensor([5, 32], dtype=torch.int32))
+    torch.testing.assert_close(flash_decode_paged(*args), ref.ref_flash_decode_paged(*args))
+    logits = torch.from_numpy(rng.normal(size=(10, 8)).astype(np.float32))
+    plc = ExpertPlacement.identity(8)
+    got = topk_router_replicated(logits, 2, plc.replica_slots, plc.replica_count, 8)
+    want = ref.ref_topk_router_replicated(logits, 2, plc.replica_slots, plc.replica_count, 8)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_, w_)
+    assert (moe_gemm.launches, flash_decode_paged.launches,
+            topk_router_replicated.launches) == (0, 0, 0)
+
+
+def test_no_silent_fallback_off_the_cpu():
+    """A tensor that is not on the CPU is never served by the plain path: the
+    wrappers accept only CUDA tensors there, and asking for the card where
+    there is none raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card contract cannot be checked here")
+    x = torch.empty((2, 8, 16), device="meta")
+    w = torch.empty((2, 16, 24), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        moe_gemm(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_paged(torch.empty((2, 4, 16), device="meta"),
+                           torch.empty((5, 16, 2, 16), device="meta"),
+                           torch.empty((5, 16, 2, 16), device="meta"),
+                           torch.empty((2, 2), dtype=torch.int32, device="meta"),
+                           torch.empty((2,), dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_router_replicated(torch.empty((4, 8), device="meta"), 2,
+                               torch.empty((8, 1), dtype=torch.int32, device="meta"),
+                               torch.empty((8,), dtype=torch.int32, device="meta"), 8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        devlib.resolve("cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        devlib.resolve(None)                      # the default is the card
+
+
+def test_port_imports_neither_jax_nor_reference():
+    """Importing every module of repro_torch (and chip_smoke.py) leaves jax
+    and the reference package out of sys.modules."""
+    code = """
+import importlib, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+sys.path.insert(0, sys.argv[1])
+importlib.import_module("chip_smoke")
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code, str(REPO)], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("ok")
