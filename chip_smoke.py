@@ -3,22 +3,31 @@
 
     python3 chip_smoke.py
 
-1. Builds the three CUDA kernels of the MoE decode path from
+1. Builds the four CUDA sources of the port (five kernels) from
    src/repro_torch/kernels/csrc/ with nvcc (one process per source, in
    parallel) and prints the build seconds and the compiler's register /
    shared-memory report.
 2. Holds each kernel against its plain PyTorch version on the card at the
-   main path's full qwen3-30b-a3b shapes, and times kernel, plain version
-   and (where one PyTorch call computes the same function) that call, with
-   CUDA events: median of 20 launches, L2 flushed before each.
-3. Checks the kernel path against the plain path end to end: one f32 decode
-   step at full width (2 layers) with kernels vs without.
+   paths' full qwen3-30b-a3b shapes, shows that each gate would catch the
+   faults it is there for, and times kernel, plain version and (where one
+   PyTorch call computes the same function) that call, with CUDA events:
+   median of 20 launches, L2 flushed before each.
+3. Checks the kernel path against the plain path end to end at full width
+   in f32 (2 layers): one paged decode step, and one slot-layout decode
+   step under a replicated placement whose weights ``apply_placement``
+   gathered.
 4. Serves requests through ``Engine`` at full qwen3-30b-a3b width (bf16,
    depth cut to 4 layers: 48 layers are ~61 GB of weights; depth changes no
-   kernel shape) on the paged KV layout with the fused MoE path, then a
-   shorter run with int8 KV pages.  Every request must finish, all logits
-   must be finite, prefix pages must be shared and the pool drained, and
-   each kernel's launch count must match the path.
+   kernel shape): on the paged KV layout with the fused MoE path and no
+   expert level (plus a shorter int8-KV run and a traced run), then on the
+   slot layout with the "gimbal+rep" expert level, which rebalances and
+   replicates experts mid-run (plus a shorter traced run).  Every request must finish, all logits must
+   be finite, each kernel's launch count must match the path, the paged
+   runs must share prefix pages and drain the pool, and the slot run must
+   relocate experts into a replicated slot map that the router kernel
+   receives.  During the slot run the slot flash-decode kernel and the
+   identity router kernel are held against their plain versions on the
+   run's own cache and router logits.
 5. Prints the card's name and power limit, one JSON line listing the
    kernels, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -46,6 +55,10 @@ TOL = {"bfloat16": 5e-2, "float32": 2e-4}
 # in f32 and round the output to q's dtype once, so a bf16 output may differ
 # by one rounding step (< 1 % of the value)
 FD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (2e-4, 2e-4)}
+# (rtol, atol as a fraction of the plain output's rms) of moe_gemm: both
+# sides accumulate in f32 and round once, so a bf16 output may differ by one
+# rounding step (< 0.8 % of the value); atol covers values near zero
+MG_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (2e-4, 2e-4)}
 
 
 def log(*a) -> None:
@@ -243,8 +256,19 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                 got = moe_gemm(x, w)
                 want = ref.ref_moe_gemm(x, w)
                 torch.cuda.synchronize()
-                err = check_close(f"moe_gemm[{dtype_name},C={c},{proj}]", got, want,
-                                  TOL[dtype_name])
+                name = f"moe_gemm[{dtype_name},C={c},{proj}]"
+                rtol, atol_frac = MG_TOL[dtype_name]
+                atol = atol_frac * float(want.float().square().mean().sqrt())
+                err = check_close(name, got, want, rtol, atol)
+                # the gate must see a kernel that skipped the last 32-deep K
+                # tile or wrote a wrong edge of 64 output columns
+                wrong = {"last K tile dropped": ref.ref_moe_gemm(x[..., :-32], w[:, :-32]),
+                         "last F tile zeroed": torch.cat(
+                             [want[..., :-64], torch.zeros_like(want[..., -64:])], -1)}
+                for fault, bad in wrong.items():
+                    if max_excess(bad, want, rtol, atol)[1] <= 0:
+                        raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
+                                             f"from the plain version")
                 ms = timer.ms(lambda: moe_gemm(x, w))
                 plain = timer.ms(lambda: ref.ref_moe_gemm(x, w))
                 lib = timer.ms(lambda: torch.bmm(x, w))
@@ -256,7 +280,7 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                                                  bound=_bound(nbytes, flops, dtype_name))
                 log(f"kernel moe_gemm dtype={dtype_name} C={c} {proj} "
                     f"({e}x{c}x{din} @ {e}x{din}x{dout}): max_abs_err={err:.3e} "
-                    f"(tol {TOL[dtype_name]}) ms={ms:.4f} plain_ms={plain:.4f} "
+                    f"(rtol {rtol}, atol {atol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
                     f"library_ms(torch.bmm)={lib:.4f} "
                     f"bound_ms={mg[(dtype_name, c, proj)]['bound'][0]:.4f} "
                     f"({mg[(dtype_name, c, proj)]['bound'][1]})")
@@ -268,7 +292,116 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
         max_abs_err=max(v["err"] for v in mg.values()), ms=main["ms"],
         plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
         library_ms=main["lib"])
+    results.update(_slot_flash_decode_checks(torch, timer, cfg, gen))
+    results.update(_topk_router_checks(torch, timer, cfg, gen))
     return results
+
+
+def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
+    """Kernel 4 over a contiguous slot cache at the slot path's width:
+    B = max_slots = 8, S = max_seq = 1024, 32 / 4 heads x 128."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode, ref
+
+    b, s, hq, hkv, d = 8, 1024, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tile = 32                               # csrc/flash_decode.cu kTile
+    q = torch.randn((b, hq, d), generator=gen, device=DEVICE)
+    k = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE)
+    v = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE)
+    # 0, 1, lengths that are multiples of no tile, and the full cache
+    lengths = torch.tensor([s, 0, 1, 37, 333, 517, 1001, 765], dtype=torch.int32,
+                           device=DEVICE)
+    tile_end = ((lengths + tile - 1) // tile * tile).to(torch.int32)
+    n_tok = int(lengths.sum())
+    fd = {}
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        rtol, atol = FD_TOL[dtype_name]
+        qq, kk, vv = q.to(dtype), k.to(dtype), v.to(dtype)
+        for softcap in (0.0, 30.0):
+            args = (qq * 10 if softcap else qq, kk, vv, lengths)
+            name = f"flash_decode[{dtype_name},softcap={softcap}]"
+            got = flash_decode(*args, softcap=softcap)
+            want = ref.ref_flash_decode(*args, softcap)
+            torch.cuda.synchronize()
+            err = check_close(name, got, want, rtol, atol)
+            if not (got[1] == 0).all():
+                raise AssertionError(f"{name}: length-0 row is not exactly zero")
+            wrong = {"no in-tile length mask": ref.ref_flash_decode(
+                args[0], kk, vv, tile_end, softcap)}
+            if softcap:
+                wrong["no softcap"] = ref.ref_flash_decode(*args, 0.0)
+            for fault, bad in wrong.items():
+                if max_excess(bad, want, rtol, atol)[1] <= 0:
+                    raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
+                                         f"from the plain version")
+            row = dict(err=err)
+            if dtype == torch.bfloat16:
+                row["ms"] = timer.ms(lambda: flash_decode(*args, softcap=softcap))
+                row["plain"] = timer.ms(lambda: ref.ref_flash_decode(*args, softcap))
+                nbytes = 2 * q.numel() * 2 + n_tok * hkv * d * 2 * 2 + b * 4
+                row["bound"] = _bound(nbytes, 4 * n_tok * hq * d, dtype_name)
+                row["lib"] = None
+                if not softcap:
+                    # the library yardstick: one SDPA call with a boolean length
+                    # mask over the same (B, Hkv, S, D) cache, grouped queries
+                    mask = (torch.arange(s, device=DEVICE)[None, :]
+                            < lengths[:, None])[:, None, None, :]
+                    qs, ks, vs = qq[:, :, None, :], kk.transpose(1, 2), vv.transpose(1, 2)
+                    row["lib"] = timer.ms(lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask, enable_gqa=True))
+                log(f"kernel flash_decode dtype={dtype_name} softcap={softcap} B={b} S={s} "
+                    f"tokens={n_tok}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol}) "
+                    f"ms={row['ms']:.4f} plain_ms={row['plain']:.4f} library_ms"
+                    f"(sdpa)={'none' if row['lib'] is None else format(row['lib'], '.4f')} "
+                    f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]})")
+            else:
+                log(f"kernel flash_decode dtype={dtype_name} softcap={softcap}: "
+                    f"max_abs_err={err:.3e} (rtol {rtol}, atol {atol})")
+            fd[(dtype_name, softcap)] = row
+    main = fd[("bfloat16", 0.0)]
+    return {"flash_decode": dict(
+        source="src/repro_torch/kernels/csrc/flash_decode.cu",
+        replaces="src/repro/kernels/flash_decode.py:73",
+        max_abs_err=max(v["err"] for v in fd.values()), ms=main["ms"],
+        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=main["lib"])}
+
+
+def _topk_router_checks(torch, timer: Timer, cfg, gen) -> dict:
+    """Kernel 5, the identity-placement router, at T = 8 and 512 x E = 128."""
+    from repro_torch.kernels import ref, topk_router
+
+    e, k = cfg.num_experts, cfg.moe_top_k
+    rt = {}
+    for t in (8, 512):
+        for tied in (False, True):
+            logits = torch.randn((t, e), generator=gen, device=DEVICE) * 2.0
+            if tied:
+                logits = (torch.round(logits) / 2).clamp(-1, 1)
+            name = f"topk_router[T={t},tied={tied}]"
+            got = topk_router(logits, k)
+            want = ref.ref_topk_router(logits, k)
+            torch.cuda.synchronize()
+            err = check_close(name, got[0], want[0], 1e-5)
+            for what, g_, w_ in zip(("ids", "pos"), got[1:], want[1:]):
+                if not torch.equal(g_, w_):
+                    raise AssertionError(f"{name}: {what} differ in "
+                                         f"{int((g_ != w_).sum())} places")
+            ms = timer.ms(lambda: topk_router(logits, k))
+            plain = timer.ms(lambda: ref.ref_topk_router(logits, k))
+            nbytes = t * e * 4 + 3 * t * k * 4
+            rt[(t, tied)] = dict(err=err, ms=ms, plain=plain,
+                                 bound=_bound(nbytes, 5 * t * e, "float32"))
+            log(f"kernel topk_router T={t} tied={tied}: max_abs_err={err:.3e} (tol 1e-5) "
+                f"ints_exact=True ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
+                f"bound_ms={rt[(t, tied)]['bound'][0]:.6f} (bytes)")
+    main = rt[(8, False)]
+    return {"topk_router": dict(
+        source="src/repro_torch/kernels/csrc/topk_router.cu",
+        replaces="src/repro/kernels/topk_router.py:145",
+        max_abs_err=max(v["err"] for v in rt.values()), ms=main["ms"],
+        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=None)}
 
 
 def _bound(nbytes: int, flops: int, dtype_name: str) -> tuple:
@@ -316,27 +449,73 @@ def reference_phase(torch, cfg) -> None:
     log(f"reference: f32 full-width decode step, kernels vs plain path: "
         f"max_abs_err={err:.3e} (tol {TOL['float32']}), logits {tuple(lk.shape)}, "
         f"prefill tokens equal {[int(x) for x in tk]}")
+    _replicated_slot_step(torch, cfg32, params)
     del params
     torch.cuda.empty_cache()
 
 
-# ----------------------------------------------------------------------------- engine
-
-def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label: str,
-               trace: bool = False) -> dict:
-    """Serve ``n_req`` requests (half sharing a 256-token prefix) through
-    ``Engine`` and check the run.  ``trace`` records the run with
-    torch.profiler and reports the device's busy share and kernel times."""
+def _replicated_slot_step(torch, cfg32, params) -> None:
+    """The slot layout under a replicated, non-identity placement: the
+    "eplb" solver's slot map for seeded skewed counts with R = 4 replica
+    slots (S = 132), the expert weights gathered into it by the backend's
+    ``apply_placement``, then one decode step through the router and
+    grouped-GEMM kernels against the plain gather path."""
     import numpy as np
-    from repro_torch import kernels as K
+    from repro_torch.core.eplb import ExpertRebalancer
+    from repro_torch.core.placement import eplb_placement_rep
     from repro_torch.core.types import Request
     from repro_torch.models import model as M
-    from repro_torch.serving.engine import Engine
+    from repro_torch.models.moe import ExpertPlacement
+    from repro_torch.serving.backend import TorchBackend
 
-    eng = Engine(0, cfg, params, variant="gimbal", expert_level=None, max_slots=8,
-                 max_seq=1024, prefill_budget=512, kv_layout="paged", kv_block_size=16,
-                 kv_quant=kv_quant, dispatch_mode="fused", use_kernels=True,
-                 device=DEVICE)
+    e = cfg32.num_experts
+    counts = np.random.default_rng(SEED + 2).pareto(1.0, size=(cfg32.num_layers, e)) + 1.0
+    slot_map = eplb_placement_rep(counts, 4, 4)
+    plc = ExpertPlacement.from_slot_map(slot_map, e)
+    if len(slot_map) != e + 4 or int(plc.replica_count.max()) < 2 \
+            or np.array_equal(slot_map[:e], np.arange(e)):
+        raise AssertionError("reference: the slot map is not a replicated, non-identity one")
+    rng = torch.Generator().manual_seed(SEED + 3)
+    outs = []
+    for fused in (True, False):
+        rb = ExpertRebalancer(cfg32, 4, redundancy=4)
+        rb.slot_map = slot_map
+        be = TorchBackend(cfg32, params, max_slots=4, max_seq=256, kv_layout="slot",
+                          dispatch_mode="fused" if fused else "gather", rebalancer=rb,
+                          device=DEVICE)
+        rng.manual_seed(SEED + 3)
+        for i, plen in enumerate((40, 97, 130)):
+            toks = torch.randint(0, cfg32.vocab_size, (plen,), generator=rng).numpy()
+            be.start(Request(i, plen, 4, 0.0, prompt_tokens=toks), 0.0)
+        if be.relocations != 1 or be.params["blocks"]["moe"]["w_gate"].shape[1] != e + 4:
+            raise AssertionError("reference: apply_placement did not gather 132 slots")
+        tokens = torch.as_tensor(be.slot_last_token.astype("int64"), device=DEVICE)[:, None]
+        with torch.no_grad():
+            logits, _, _ = M.decode_step(
+                be.params, cfg32, tokens, be.kv.cache, be.kv.positions(),
+                placements=be._placements(), dispatch_mode=be.dispatch_mode)
+        outs.append((logits[:3], be.slot_last_token[:3].copy()))
+        del be
+    torch.cuda.synchronize()
+    (lk, tk), (lp, tp) = outs
+    err = check_close("decode_step f32 replicated placement, kernels vs plain",
+                      lk, lp, TOL["float32"])
+    if list(tk) != list(tp):
+        raise AssertionError(f"prefill greedy tokens differ: {tk} vs {tp}")
+    log(f"reference: f32 full-width slot decode step, replicated placement "
+        f"(S={len(slot_map)}, max copies {int(plc.replica_count.max())}), kernels vs plain "
+        f"path: max_abs_err={err:.3e} (tol {TOL['float32']}), prefill tokens equal "
+        f"{[int(x) for x in tk]}")
+
+
+# ----------------------------------------------------------------------------- engine
+
+def _requests(cfg, n_req: int, max_new: int):
+    """``n_req`` requests of 128-512 prompt tokens, half sharing a 256-token
+    prefix, all submitted at t = 0."""
+    import numpy as np
+    from repro_torch.core.types import Request
+
     rng = np.random.default_rng(SEED)
     prefix = rng.integers(0, cfg.vocab_size, 256)
     reqs = []
@@ -347,9 +526,20 @@ def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label:
         else:
             toks = rng.integers(0, cfg.vocab_size, plen)
         reqs.append(Request(i, len(toks), max_new, 0.0, prompt_tokens=toks))
+    return reqs
+
+
+def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
+           after_decode=None) -> dict:
+    """Drive ``eng`` until every request finished, with every kernel's count
+    set to 0 just before and read just after.  Counts the prefill and decode
+    calls, checks their logits are finite, and times the backend's calls.
+    ``after_decode(eng)`` runs right after each decode step is enqueued."""
+    from repro_torch import kernels as K
+    from repro_torch.models import model as M
 
     seen = {"prefill": 0, "decode": 0, "finite": True}
-    orig_prefill, orig_decode = M.prefill, M.decode_step_paged
+    orig_prefill, orig_decode = M.prefill, getattr(M, decode_fn)
 
     def prefill(*a, **kw):
         out = orig_prefill(*a, **kw)
@@ -359,6 +549,8 @@ def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label:
 
     def decode(*a, **kw):
         out = orig_decode(*a, **kw)
+        if after_decode is not None:
+            after_decode(eng)
         seen["decode"] += 1
         seen["finite"] &= bool(out[0].isfinite().all())
         return out
@@ -377,7 +569,8 @@ def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label:
 
     eng.backend.start = timed("start", eng.backend.start)
     eng.backend.decode = timed("decode", eng.backend.decode)
-    M.prefill, M.decode_step_paged = prefill, decode
+    M.prefill = prefill
+    setattr(M, decode_fn, decode)
     prof = None
     try:
         torch.cuda.synchronize()
@@ -399,16 +592,14 @@ def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label:
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
-        M.prefill, M.decode_step_paged = orig_prefill, orig_decode
+        M.prefill = orig_prefill
+        setattr(M, decode_fn, orig_decode)
 
-    L = cfg.num_layers
     gen_tokens = sum(r.generated for r in done)
-    prompt_tokens = sum(r.prompt_len for r in done)
     log(f"engine[{label}]: requests={len(done)}/{len(reqs)} steps={eng.steps} "
         f"prefills={seen['prefill']} decode_steps={seen['decode']} "
-        f"prompt_tokens={prompt_tokens} generated_tokens={gen_tokens} "
+        f"prompt_tokens={sum(r.prompt_len for r in done)} generated_tokens={gen_tokens} "
         f"wall_s={wall:.3f} generated_tokens_per_s={gen_tokens / wall:.2f} "
-        f"shared_hits={eng.kv.shared_hits} blocks_used_after={eng.kv.blocks_used} "
         f"launches={launches}")
     log(f"engine[{label}] time: prefill_s={secs['start']:.4f} "
         f"({1e3 * secs['start'] / max(seen['prefill'], 1):.3f} ms per request) "
@@ -422,17 +613,155 @@ def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label:
         raise AssertionError(f"engine[{label}]: only {len(done)}/{len(reqs)} finished")
     if not seen["finite"]:
         raise AssertionError(f"engine[{label}]: non-finite logits")
+    if any(r.generated != r.max_new_tokens for r in done):
+        raise AssertionError(f"engine[{label}]: a request stopped short of max_new_tokens")
+    L = eng.cfg.num_layers
+    path = {"topk_router_replicated": (seen["prefill"] + seen["decode"]) * L,
+            "moe_gemm": 3 * (seen["prefill"] + seen["decode"]) * L}
+    return dict(launches=launches, path=path, seen=seen, wall=wall,
+                tokens_per_s=gen_tokens / wall)
+
+
+def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label: str,
+               trace: bool = False) -> dict:
+    """Serve ``n_req`` requests on the paged layout with no expert level and
+    check the run: prefix pages shared, the pool drained, and launch counts
+    equal to the path's.  ``trace`` records the run with torch.profiler and
+    reports the device's busy share and kernel times."""
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(0, cfg, params, variant="gimbal", expert_level=None, max_slots=8,
+                 max_seq=1024, prefill_budget=512, kv_layout="paged", kv_block_size=16,
+                 kv_quant=kv_quant, dispatch_mode="fused", use_kernels=True,
+                 device=DEVICE)
+    run = _serve(torch, eng, _requests(cfg, n_req, max_new), "decode_step_paged", label,
+                 trace=trace)
+    log(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
+        f"blocks_used_after={eng.kv.blocks_used}")
     if eng.kv.shared_hits <= 0 or eng.kv.blocks_used != 0:
         raise AssertionError(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
                              f"blocks_used={eng.kv.blocks_used}")
-    if any(r.generated != max_new for r in done):
-        raise AssertionError(f"engine[{label}]: a request stopped short of max_new_tokens")
-    want = {"flash_decode_paged": seen["decode"] * L,
-            "topk_router_replicated": (seen["prefill"] + seen["decode"]) * L,
-            "moe_gemm": 3 * (seen["prefill"] + seen["decode"]) * L}
-    if launches != want:
-        raise AssertionError(f"engine[{label}]: launches {launches} != path {want}")
-    return dict(launches=launches, tokens_per_s=gen_tokens / wall)
+    want = dict(run["path"], flash_decode_paged=run["seen"]["decode"] * cfg.num_layers,
+                flash_decode=0, topk_router=0)
+    if run["launches"] != want:
+        raise AssertionError(f"engine[{label}]: launches {run['launches']} != path {want}")
+    return run
+
+
+def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
+               label: str = "slot+gimbal+rep", trace: bool = False) -> dict:
+    """Serve ``n_req`` requests on the slot layout with the "gimbal+rep"
+    expert level (tau = 8 engine steps, 4 expert devices, so R = 4 replica
+    slots and S = 132): the level observes the routed expert ids, rebalances
+    mid-run, and the backend gathers the weights into each new slot map.
+
+    Checks that every request finished with finite logits, that experts
+    were relocated into a replicated slot map, that the router kernel
+    received non-identity replica tables, and that launch counts equal the
+    path's.  Every 8th decode step, right after it is enqueued, the slot
+    flash-decode kernel runs through ``ops.decode_attention`` on layer 0 of
+    the live cache (lengths = resident tokens, 0 for free slots) and the
+    identity router kernel through ``ops.route`` on the step's router
+    logits; each is held against its plain version there.  ``trace`` as in
+    ``engine_run``."""
+    import numpy as np
+    from repro_torch.core.types import GimbalConfig
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.engine import Engine
+
+    eng = Engine(0, cfg, params, variant="gimbal+rep", gimbal_cfg=GimbalConfig(tau=8),
+                 num_expert_devices=4, kv_layout="slot", dispatch_mode="fused",
+                 use_kernels=True, max_slots=8, max_seq=1024, prefill_budget=512,
+                 device=DEVICE)
+    level = eng.rebalancer
+    host = {"observe": 0.0, "tick": 0.0}
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            host[name] += time.perf_counter() - t
+            return out
+        return call
+
+    level.observe = timed("observe", level.observe)
+    level.tick = timed("tick", level.tick)
+
+    tables = {"non_identity": 0, "calls": 0, "checks": 0, "last_logits": None,
+              "last_out": None}
+    orig_route = moe_lib.route_replicated
+
+    def route(logits, k, replica_slots, replica_count, num_slots):
+        tables["calls"] += 1
+        # the initial layout is the identity over E slots; every rebalance
+        # of "gimbal+rep" lays out E + R slots, replicas included
+        if num_slots > cfg.num_experts:
+            tables["non_identity"] += 1
+        out = orig_route(logits, k, replica_slots, replica_count, num_slots)
+        tables["last_logits"], tables["last_out"] = logits, out
+        return out
+
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 4)
+    fd_err = [0.0]
+
+    def check_live(eng):
+        """Kernels 4 and 5 on the path's own data, every 8th decode step."""
+        if tables["checks"] % 8 == 0:
+            cache = eng.kv.cache["layers"]
+            lengths = torch.as_tensor(eng.kv.slot_len, dtype=torch.int32, device=DEVICE)
+            q = torch.randn((eng.max_slots, cfg.num_heads, cfg.head_dim), generator=gen,
+                            device=DEVICE).to(cfg.adtype)
+            got = ops.decode_attention(q, cache["k"][0], cache["v"][0], lengths)
+            want = ref.ref_flash_decode(q, cache["k"][0], cache["v"][0], lengths)
+            fd_err[0] = max(fd_err[0], check_close(
+                "flash_decode on the live slot cache", got, want, *FD_TOL[cfg.dtype]))
+            if not (got[lengths == 0] == 0).all():
+                raise AssertionError("flash_decode: a free slot's row is not exactly zero")
+            logits = tables["last_logits"]          # the step's last layer
+            gates, ids, pos = ops.route(logits, cfg.moe_top_k)
+            want = ref.ref_topk_router(logits, cfg.moe_top_k)
+            check_close("topk_router on the step's router logits", gates, want[0], 1e-5)
+            if not (torch.equal(ids, want[1]) and torch.equal(pos, want[2])
+                    and torch.equal(ids, tables["last_out"][1])):
+                raise AssertionError("topk_router: ids or positions differ on the path's logits")
+        tables["checks"] += 1
+
+    moe_lib.route_replicated = route
+    try:
+        run = _serve(torch, eng, _requests(cfg, n_req, max_new), "decode_step", label,
+                     trace=trace, after_decode=check_live)
+    finally:
+        moe_lib.route_replicated = orig_route
+    slot_map = np.asarray(level.slot_map)
+    copies = int(level.placement().replica_count.max())
+    n_checks = -(-tables["checks"] // 8)
+    log(f"engine[{label}]: relocations={eng.relocations} "
+        f"rebalances={level.migrations} slots={len(slot_map)} max_copies={copies} "
+        f"router_calls_with_replica_tables={tables['non_identity']}/{tables['calls']} "
+        f"live_checks={n_checks} flash_decode_live_max_abs_err={fd_err[0]:.3e} "
+        f"host_observe_s={host['observe']:.4f} host_tick_s={host['tick']:.4f} "
+        f"moe_mult={level.moe_mult:.4f} cross_frac={level.cross_frac:.4f}")
+    for ev in level.events:
+        log(f"engine[{label}] rebalance: step={ev.step} moved_experts="
+            f"{ev.moved_experts} bytes_moved={ev.bytes_moved} imbalance "
+            f"{ev.imbalance_before:.4f} -> {ev.imbalance_after:.4f} cut "
+            f"{ev.cut_before:.1f} -> {ev.cut_after:.1f}")
+    if eng.relocations < 1:
+        raise AssertionError(f"engine[{label}]: no relocation fired")
+    if len(slot_map) != cfg.num_experts + 4 or copies < 2:
+        raise AssertionError(f"engine[{label}]: slot map of {len(slot_map)} slots, "
+                             f"at most {copies} copies of an expert")
+    if tables["non_identity"] < 1:
+        raise AssertionError(f"engine[{label}]: the router never received "
+                             "replica tables")
+    want = dict(run["path"], flash_decode_paged=0, flash_decode=n_checks,
+                topk_router=n_checks)
+    if run["launches"] != want:
+        raise AssertionError(f"engine[{label}]: launches {run['launches']} "
+                             f"!= path {want}")
+    return run
 
 
 def _report_trace(prof, wall_s: float, label: str) -> None:
@@ -501,16 +830,23 @@ def main() -> int:
     engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant="int8", label="int8 KV")
     engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant=None, label="bf16 traced",
                trace=True)
+    slot_run = gimbal_run(torch, cfg, params, n_req=16, max_new=32)
+    gimbal_run(torch, cfg, params, n_req=8, max_new=16, label="slot+gimbal+rep traced",
+               trace=True)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     log(smi)
+    # kernels 1-3 launch on the paged main path; kernels 4 and 5 in the slot
+    # run, where they are driven on that run's own cache and router logits
+    launches = dict(main_run["launches"], flash_decode=slot_run["launches"]["flash_decode"],
+                    topk_router=slot_run["launches"]["topk_router"])
     line = []
     for name, k in kernels.items():
         line.append({"name": name, "route": "cuda", "source": k["source"],
-                     "replaces": k["replaces"], "launches": main_run["launches"][name],
+                     "replaces": k["replaces"], "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"]})

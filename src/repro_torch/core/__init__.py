@@ -1,14 +1,24 @@
 """Scheduling core of the port: the request level (SJF queue, preemption,
-SLO accounting) and the per-engine ``SchedulerCore``, copied from
-``repro.core``, plus the ``NullExpertLevel``."""
+SLO accounting), the per-engine ``SchedulerCore`` and the expert level
+(placement solvers, affinity statistics, the Algorithm 3 rebalancer), ported
+from ``repro.core``."""
 from repro_torch.core.types import (PRIORITY_CLASSES, EngineMetrics,
                                     GimbalConfig, Request, class_rank)
 from repro_torch.core.sjf import SJFQueue, fcfs_order, sjf_order
 from repro_torch.core.preempt import (VICTIM_POLICIES, eligible_victims,
                                       reset_for_resume, select_victim)
-from repro_torch.core.eplb import NullExpertLevel
-from repro_torch.core.gimbal import (DISPATCH_VARIANTS, VARIANTS, make_queue,
-                                     variant_flags)
+from repro_torch.core.affinity import AffinityTracker, accumulate_stats
+from repro_torch.core.placement import (
+    assignment_to_perm, comm_cut, eplb_placement, eplb_placement_rep,
+    gimbal_placement, gimbal_placement_rep, migration_cost, milp_exact,
+    objective, perm_to_assignment, perm_to_slot_map, placement_coupling,
+    rep_comm_cut, rep_migration_cost, rep_row_imbalance, row_imbalance,
+    static_placement)
+from repro_torch.core.eplb import (ClusterExpertLevel, ExpertRebalancer,
+                                   NullExpertLevel, RebalanceEvent)
+from repro_torch.core.gimbal import (DISPATCH_VARIANTS, VARIANTS,
+                                     make_cluster_expert_level, make_queue,
+                                     make_rebalancer, variant_flags)
 from repro_torch.core.prefix_cache import PrefixCache, block_hashes
 from repro_torch.core.scheduler import (Backend, RunningSeq, SchedEvent,
                                         SchedulerCore)
@@ -17,8 +27,15 @@ __all__ = [
     "PRIORITY_CLASSES", "EngineMetrics", "GimbalConfig", "Request", "class_rank",
     "SJFQueue", "fcfs_order", "sjf_order",
     "VICTIM_POLICIES", "eligible_victims", "reset_for_resume", "select_victim",
-    "NullExpertLevel",
-    "DISPATCH_VARIANTS", "VARIANTS", "make_queue", "variant_flags",
+    "AffinityTracker", "accumulate_stats",
+    "assignment_to_perm", "comm_cut", "eplb_placement", "eplb_placement_rep",
+    "gimbal_placement", "gimbal_placement_rep", "migration_cost", "milp_exact",
+    "objective", "perm_to_assignment", "perm_to_slot_map", "placement_coupling",
+    "rep_comm_cut", "rep_migration_cost", "rep_row_imbalance", "row_imbalance",
+    "static_placement",
+    "ClusterExpertLevel", "ExpertRebalancer", "NullExpertLevel", "RebalanceEvent",
+    "DISPATCH_VARIANTS", "VARIANTS", "make_cluster_expert_level", "make_queue",
+    "make_rebalancer", "variant_flags",
     "PrefixCache", "block_hashes",
     "Backend", "RunningSeq", "SchedEvent", "SchedulerCore",
 ]

@@ -1,5 +1,6 @@
-"""Port of the queue half of ``repro.core.gimbal``: the ablation variants of
-the paper's evaluation (§V-A.7) and the request-level queue each one uses.
+"""Port of ``repro.core.gimbal``: the ablation variants of the paper's
+evaluation (§V-A.7), the request-level queue and the expert level each one
+uses.
 
   * "vllm"       — RR router + FCFS queue + static experts   (baseline)
   * "dplb"       — Alg.1 router only
@@ -11,16 +12,18 @@ the paper's evaluation (§V-A.7) and the request-level queue each one uses.
   * "rr" | "prefix" | "kv" | "sticky" | "combined" — engine-level dispatch
     variants (SJF + EDR held fixed, only the dispatch rule varies)
 
-The router and expert-level factories (``make_router``, ``make_rebalancer``,
-``make_cluster_expert_level``) wait for the cluster plane and the expert
-level of the port (ROADMAP.md, Queue 1).
+``make_router`` waits for the cluster plane and ``make_sim_expert_level``
+for the simulator plane (ROADMAP.md, Queue 1).
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+from repro_torch.core.eplb import (ClusterExpertLevel, ExpertRebalancer,
+                                   NullExpertLevel)
 from repro_torch.core.sjf import SJFQueue
 from repro_torch.core.types import GimbalConfig
+from repro_torch.models.config import ModelConfig
 
 DISPATCH_VARIANTS = ("rr", "prefix", "kv", "sticky", "combined")
 VARIANTS = ("vllm", "dplb", "sjfs", "edr", "eplb", "gimbal",
@@ -44,3 +47,53 @@ def variant_flags(variant: str) -> Dict[str, bool]:
 def make_queue(variant: str, cfg: Optional[GimbalConfig] = None) -> SJFQueue:
     f = variant_flags(variant)
     return SJFQueue(cfg or GimbalConfig(), policy="sjf" if f["sjf"] else "fcfs")
+
+
+def _expert_policy(variant: str) -> str:
+    if variant == "eplb":                 # count-only EPLB baseline
+        return "eplb"
+    return "gimbal" if variant_flags(variant)["edr"] else "static"
+
+
+def _redundancy(variant: str, model_cfg: ModelConfig, num_devices: int,
+                cfg: GimbalConfig) -> int:
+    """Replica-slot count for this variant: GimbalConfig.redundancy, or one
+    redundant slot per device (keeping E+R divisible by g) when unset."""
+    if not variant_flags(variant)["rep"]:
+        return 0
+    r = cfg.redundancy if cfg.redundancy is not None else num_devices
+    if (model_cfg.num_experts + r) % num_devices:
+        raise ValueError(f"{num_devices} devices must divide "
+                         f"E+R={model_cfg.num_experts + r}")
+    return r
+
+
+def make_rebalancer(variant: str, model_cfg: ModelConfig, num_devices: int,
+                    cfg: Optional[GimbalConfig] = None, anchor: int = 0
+                    ) -> Optional[ExpertRebalancer]:
+    if not model_cfg.is_moe:
+        return None  # expert level inapplicable to dense archs
+    cfg = cfg or GimbalConfig()
+    return ExpertRebalancer(model_cfg, num_devices,
+                            policy=_expert_policy(variant), anchor=anchor,
+                            cfg=cfg,
+                            redundancy=_redundancy(variant, model_cfg,
+                                                   num_devices, cfg))
+
+
+def make_cluster_expert_level(variant: str, model_cfg: ModelConfig,
+                              num_devices: int,
+                              cfg: Optional[GimbalConfig] = None,
+                              anchor: int = 0, prior_seed: Optional[int] = None):
+    """The ONE expert level shared by every engine core in a cluster
+    (§V-A.1: experts EP-shard across all engines' devices); pass it to each
+    Engine.  Non-MoE archs get the NullExpertLevel."""
+    if not model_cfg.is_moe:
+        return NullExpertLevel()
+    cfg = cfg or GimbalConfig()
+    return ClusterExpertLevel(model_cfg, num_devices,
+                              policy=_expert_policy(variant), anchor=anchor,
+                              cfg=cfg,
+                              redundancy=_redundancy(variant, model_cfg,
+                                                     num_devices, cfg),
+                              prior_seed=prior_seed)

@@ -24,7 +24,7 @@ from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_decode_paged", "topk_router", "moe_gemm")
+SOURCES = ("flash_decode_paged", "topk_router", "moe_gemm", "flash_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

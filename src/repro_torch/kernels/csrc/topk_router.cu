@@ -1,8 +1,9 @@
 // Replica-aware fused MoE router: softmax, top-k, renormalised gates,
 // logical -> physical slot, and per-slot capacity positions.
 //
-// Replaces the TPU kernel src/repro/kernels/topk_router.py::
-// topk_router_replicated (_call / _kernel).  Same contract: top-k by
+// Replaces the TPU kernels src/repro/kernels/topk_router.py::
+// topk_router_replicated (_call / _kernel) and topk_router (the same _call
+// with identity tables, which the Python wrapper passes).  Same contract: top-k by
 // iterative argmax over the PROBABILITIES with ties to the lowest index
 // (as the Pallas argmax and lax.top_k), gates / max(sum, 1e-9), slot =
 // replica_slots[e, (t*k + j) mod max(count, 1)], and positions counted per

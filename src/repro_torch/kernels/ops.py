@@ -10,9 +10,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_decode import flash_decode_paged
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_paged
 from repro_torch.kernels.moe_gemm import moe_gemm
-from repro_torch.kernels.topk_router import topk_router_replicated
+from repro_torch.kernels.topk_router import topk_router, topk_router_replicated
 
 
 def expert_ffn(params: dict, xe: torch.Tensor) -> torch.Tensor:
@@ -23,6 +23,12 @@ def expert_ffn(params: dict, xe: torch.Tensor) -> torch.Tensor:
     return moe_gemm(act, params["w_down"])
 
 
+def route(logits: torch.Tensor, k: int):
+    """Fused router with the identity placement: (gates, ids, per-expert
+    capacity positions)."""
+    return topk_router(logits.contiguous(), k)
+
+
 def route_replicated(logits: torch.Tensor, k: int, replica_slots: torch.Tensor,
                      replica_count: torch.Tensor, num_slots: int):
     """Replica-aware fused router (gates, logical ids, physical slots, per-slot
@@ -30,6 +36,13 @@ def route_replicated(logits: torch.Tensor, k: int, replica_slots: torch.Tensor,
     return topk_router_replicated(logits.contiguous(), k,
                                   replica_slots.int().contiguous(),
                                   replica_count.int().contiguous(), num_slots)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
+    """(B, Hq, D) x (B, S, Hkv, D) slot cache -> (B, Hq, D)."""
+    return flash_decode(q.contiguous(), k.contiguous(), v.contiguous(),
+                        lengths.int().contiguous(), softcap=softcap)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -43,5 +56,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                               k_scale=k_scale, v_scale=v_scale, softcap=softcap)
 
 
-__all__ = ["moe_gemm", "flash_decode_paged", "topk_router_replicated",
-           "expert_ffn", "route_replicated", "paged_decode_attention"]
+__all__ = ["moe_gemm", "flash_decode", "flash_decode_paged", "topk_router",
+           "topk_router_replicated", "expert_ffn", "route", "route_replicated",
+           "decode_attention", "paged_decode_attention"]

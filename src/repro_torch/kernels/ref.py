@@ -73,6 +73,23 @@ def ref_flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     return ref_flash_decode(q, k, v, lengths, softcap)
 
 
+def ref_topk_router(logits: torch.Tensor, k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused router: softmax, top-k (lowest index on ties), renormalised
+    gates, and capacity positions per expert in token-major, then selection,
+    order.  logits: (T, E).  Returns (gates (T,k) f32, ids (T,k), pos (T,k)),
+    the integers as int32."""
+    t, e = logits.shape
+    probs = torch.softmax(logits.float(), dim=-1)
+    gates, ids = top_k(probs, k)
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    onehot = (ids.reshape(-1, 1)
+              == torch.arange(e, device=logits.device)[None, :]).int()
+    pos_flat = (torch.cumsum(onehot, dim=0) - 1) * onehot
+    pos = pos_flat.sum(-1).reshape(t, k)
+    return gates, ids.int(), pos.int()
+
+
 def ref_topk_router_replicated(logits: torch.Tensor, k: int,
                                replica_slots: torch.Tensor,
                                replica_count: torch.Tensor, num_slots: int

@@ -3,6 +3,9 @@
 * Full-sequence call (prefill): q over the whole sequence, causal mask;
   plain PyTorch (einsum + softmax, chunked over queries for long inputs),
   as the reference computes it outside any kernel.
+* Slot decode call: one new token per row written into a contiguous
+  per-slot cache (``serving.kvcache.SlotKVCache``), then plain attention
+  over the cache with a ``j <= cache_pos`` mask, as the reference computes it.
 * Paged decode call: one new token per row appended into a paged KV pool
   (``serving.kvcache.PagedKVCache``), then paged flash-decode.
 
@@ -143,6 +146,32 @@ def gqa_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
         cache["k"][:, :s] = k.to(cache["k"].dtype)
         cache["v"][:, :s] = v.to(cache["v"].dtype)
     out = _sdpa_auto(cfg, q, k, v, window, causal=True)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, cache
+
+
+def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               cache_pos: torch.Tensor, local: bool):
+    """One-token decode against one layer's slot cache.  x: (B,1,d); cache:
+    {"k": (B,S,Hkv,D), "v": ...}; cache_pos: (B,) int32 write positions.
+    The new K/V are written IN PLACE (the reference returns new arrays);
+    returns (out, cache).  The reference's sequence-sharded branch waits for
+    the sharding slice (ROADMAP.md, Queue 1 item 16)."""
+    q, k_new, v_new = _qkv(params, cfg, x)
+    q = apply_rope(q, cache_pos[:, None], cfg.rope_theta)
+    k_new = apply_rope(k_new, cache_pos[:, None], cfg.rope_theta)
+    pos = cache_pos.long()
+    rows = torch.arange(x.shape[0], device=x.device)
+    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+
+    s_max = cache["k"].shape[1]
+    j = torch.arange(s_max, device=x.device)[None, :]
+    mask = j <= pos[:, None]
+    if local and cfg.sliding_window > 0:
+        mask &= j > (pos[:, None] - cfg.sliding_window)
+    out = _sdpa(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                mask[:, None, :])
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return out, cache
 

@@ -47,6 +47,16 @@ def attn_block_full(p: dict, cfg: ModelConfig, x, positions, is_local: bool, cac
     return x, new_cache, aux
 
 
+def attn_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos,
+                      is_local: bool, is_moe_layer: bool, placement,
+                      dispatch_mode: str, stats: bool):
+    """One decode step of a block against one layer's slot cache."""
+    h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
+    a, new_cache = attn.gqa_decode(p["attn"], cfg, h, cache, cache_pos, is_local)
+    x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
+    return x, new_cache, aux
+
+
 def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
                             lengths, is_local: bool, is_moe_layer: bool, placement,
                             dispatch_mode: str, stats: bool,

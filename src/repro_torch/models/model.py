@@ -1,5 +1,5 @@
-"""Language model of the port: init / prefill / paged decode for homogeneous
-GQA stacks (dense or MoE), ported from ``repro.models.model``.
+"""Language model of the port: init / prefill / slot and paged decode for
+homogeneous GQA stacks (dense or MoE), ported from ``repro.models.model``.
 
 Parameters keep the reference's stacked layout: ``params["blocks"]`` holds
 every layer's tensors with a leading L axis, so a layer is ``a[l]`` of every
@@ -68,16 +68,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 # caches
 # =============================================================================
 
+def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
+    """The shape of every leaf of ``init_cache``'s tree, allocating nothing."""
+    _check_supported(cfg)
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return {"layers": {"k": shape, "v": shape}}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> Dict[str, Any]:
-    """Contiguous per-layer K/V cache {"layers": {"k": (L,B,S,Hkv,D), "v"}}
-    (the prefill output the paged cache copies its pages from)."""
-    _check_supported(cfg)
+    """Contiguous per-layer K/V cache {"layers": {"k": (L,B,S,Hkv,D), "v"}}:
+    the slot layout's cache, and the prefill output the paged cache copies
+    its pages from."""
     dev = devlib.resolve(device)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
     dt = dtype or cfg.adtype
-    return {"layers": {"k": torch.zeros(shape, dtype=dt, device=dev),
-                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    return {"layers": {name: torch.zeros(shape, dtype=dt, device=dev)
+                       for name, shape in cache_shapes(cfg, batch, max_seq)["layers"].items()}}
 
 
 # =============================================================================
@@ -137,6 +143,26 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
 
 def prefill(params, cfg: ModelConfig, tokens, cache, **kw):
     return forward(params, cfg, tokens, cache=cache, **kw)
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, cache_pos, *,
+                placements=None, dispatch_mode: str = "dense", stats: bool = False):
+    """One decode step against the slot cache (serving/kvcache.SlotKVCache).
+
+    token: (B, 1) int; cache: {"layers": {"k": (L,B,S,Hkv,D), "v": ...}},
+    updated IN PLACE; cache_pos: (B,) next write position per row.  Returns
+    (logits (B,V), cache, aux)."""
+    _check_supported(cfg)
+    x = embed_apply(params["embed"], token)
+    pstack = _placement_stack(cfg, placements, x.device)
+    auxs = []
+    for l in range(cfg.num_layers):
+        x, _, aux = B.attn_block_decode(
+            _layer(params["blocks"], l), cfg, x, _layer(cache["layers"], l), cache_pos,
+            cfg.layer_is_local(l), cfg.layer_is_moe(l), _placement(cfg, pstack, l),
+            dispatch_mode, stats)
+        auxs.append(aux)
+    return _head(params, cfg, x)[:, -1], cache, _agg_aux(auxs)
 
 
 def decode_step_paged(params, cfg: ModelConfig, token, pages, block_tables,

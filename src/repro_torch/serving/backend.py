@@ -1,11 +1,11 @@
 """TorchBackend: the real-compute execution substrate behind SchedulerCore,
-ported from ``repro.serving.backend.JaxBackend`` for the paged KV layout.
+ported from ``repro.serving.backend.JaxBackend``.
 
 Owns everything physical about serving — the prefill/decode calls, the
-paged device KV cache, the per-slot last-token state, and expert-weight
-relocation when the expert level fires.  Every scheduling *decision*
-(admission, preemption, completion) is made by core/scheduler.py; this
-module only executes them.  Prompts are padded to power-of-two buckets, as
+device KV cache (fixed slots or paged), the per-slot last-token state, and
+expert-weight relocation when the expert level fires.  Every scheduling
+*decision* (admission, preemption, completion) is made by
+core/scheduler.py; this module only executes them.  Prompts are padded to power-of-two buckets, as
 the reference pads them for its jit cache, so that MoE capacities (which
 depend on the token count) match the reference.
 
@@ -22,7 +22,7 @@ from repro_torch import device as devlib
 from repro_torch.core.types import Request
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
-from repro_torch.serving.kvcache import PagedKVCache
+from repro_torch.serving.kvcache import PagedKVCache, SlotKVCache, write_slot
 
 
 def _bucket(n: int, lo: int = 16) -> int:
@@ -48,14 +48,13 @@ class TorchBackend:
     def __init__(self, model_cfg: ModelConfig, params: Any, *,
                  max_slots: int = 4, max_seq: int = 256,
                  eos_id: Optional[int] = None, dispatch_mode: str = "dense",
-                 rebalancer=None, kv_layout: str = "paged",
+                 rebalancer=None, kv_layout: str = "slot",
                  kv_block_size: int = 16, kv_quant: Optional[str] = None,
                  use_kernels: bool = False, device=None):
-        if kv_layout == "slot":
-            raise NotImplementedError(
-                "kv_layout='slot' (SlotKVCache) is not ported yet; see "
-                "ROADMAP.md, Queue 1: the slot layout slice")
-        if kv_layout != "paged":
+        """``use_kernels`` takes paged flash-decode on the paged layout; the
+        slot layout's attention is plain, as in the reference.  The MoE
+        kernels follow ``dispatch_mode="fused"`` on either layout."""
+        if kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_quant not in (None, "int8"):
             raise ValueError(f"unknown kv_quant {kv_quant!r}")
@@ -65,18 +64,24 @@ class TorchBackend:
         self.rebalancer = rebalancer
         self.kv_layout = kv_layout
         self.use_kernels = use_kernels
-        self.kv = PagedKVCache(model_cfg, max_slots, max_seq,
-                               block_size=kv_block_size,
-                               quantize=(kv_quant == "int8"), device=self.device)
-        # block-granular accounting: SchedulerCore rounds every per-request
-        # charge up to whole blocks and gates admission on distinct blocks
-        self.kv_block_size = kv_block_size
+        if kv_layout == "paged":
+            self.kv = PagedKVCache(model_cfg, max_slots, max_seq,
+                                   block_size=kv_block_size,
+                                   quantize=(kv_quant == "int8"), device=self.device)
+            # block-granular accounting: SchedulerCore rounds every per-request
+            # charge up to whole blocks and gates admission on distinct blocks
+            self.kv_block_size = kv_block_size
+            kv_capacity = self.kv.capacity_tokens
+        else:
+            self.kv = SlotKVCache(model_cfg, max_slots, max_seq, device=self.device)
+            self.kv_block_size = 1
+            kv_capacity = max_slots * max_seq
         self.max_slots = max_slots
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.dispatch_mode = dispatch_mode
         self.max_concurrency = max_slots
-        self.kv_capacity = self.kv.capacity_tokens
+        self.kv_capacity = kv_capacity
         # prompts are physically truncated to the slot length (see start())
         self.max_ctx_tokens: Optional[int] = max_seq
         self.n_layers = model_cfg.num_layers
@@ -123,10 +128,14 @@ class TorchBackend:
         else:
             rng = np.random.default_rng(r.req_id)
             toks = rng.integers(0, self.cfg.vocab_size, plen).astype(np.int32)
-        # share only when the core's block accounting also shared: real
-        # tokens, not a migrated sequence (its KV travelled, all private)
-        share = r.prompt_tokens is not None and not getattr(r, "kv_migrated", False)
-        slot = self.kv.alloc(plen, toks.tolist() if share else None)
+        if self.kv_layout == "paged":
+            # share only when the core's block accounting also shared: real
+            # tokens, not a migrated sequence (its KV travelled, all private)
+            share = (r.prompt_tokens is not None
+                     and not getattr(r, "kv_migrated", False))
+            slot = self.kv.alloc(plen, toks.tolist() if share else None)
+        else:
+            slot = self.kv.alloc()
         if slot is None:
             raise RuntimeError("SchedulerCore admitted past slot capacity")
         bl = _bucket(plen)
@@ -137,7 +146,10 @@ class TorchBackend:
             self.params, self.cfg, torch.as_tensor(padded, device=self.device)[None],
             slot_cache, placements=self._placements(),
             dispatch_mode=self.dispatch_mode)
-        self.kv.write_prefill(slot, slot_cache)
+        if self.kv_layout == "paged":
+            self.kv.write_prefill(slot, slot_cache)
+        else:
+            write_slot(self.kv.cache, slot_cache, slot, self.kv.write_axes)
         self.slot_req[slot] = r
         self.kv.slot_len[slot] = plen
         self.slot_last_token[slot] = int(torch.argmax(logits[0, plen - 1]))
@@ -153,12 +165,18 @@ class TorchBackend:
         tokens = torch.as_tensor(self.slot_last_token.astype(np.int64),
                                  device=self.device)[:, None]
         pos = self.kv.positions()
-        for slot, _r in active:
-            self.kv.prepare_append(slot)     # alloc/CoW tail pages
-        logits, _, aux = M.decode_step_paged(
-            self.params, self.cfg, tokens, self.kv.pages, self.kv.device_tables(),
-            pos, placements=self._placements(), stats=self._stats,
-            dispatch_mode=self.dispatch_mode, use_kernel=self.use_kernels)
+        if self.kv_layout == "paged":
+            for slot, _r in active:
+                self.kv.prepare_append(slot)     # alloc/CoW tail pages
+            logits, _, aux = M.decode_step_paged(
+                self.params, self.cfg, tokens, self.kv.pages, self.kv.device_tables(),
+                pos, placements=self._placements(), stats=self._stats,
+                dispatch_mode=self.dispatch_mode, use_kernel=self.use_kernels)
+        else:
+            logits, _, aux = M.decode_step(
+                self.params, self.cfg, tokens, self.kv.cache, pos,
+                placements=self._placements(), stats=self._stats,
+                dispatch_mode=self.dispatch_mode)
         nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
         eos: Set[int] = set()
         rows = []
@@ -197,8 +215,10 @@ class TorchBackend:
                                              avg_ctx, queue_len=queue_len)
 
     def kv_usage(self, kv_tokens: int) -> float:
-        # the core passes blocks_used * block_size as kv_tokens in block mode
-        return min(kv_tokens / max(self.kv_capacity, 1), 1.0)
+        if self.kv_layout == "paged":
+            # the core passes blocks_used * block_size as kv_tokens in block mode
+            return min(kv_tokens / max(self.kv_capacity, 1), 1.0)
+        return self.kv.usage()
 
     def apply_placement(self, new_map: np.ndarray) -> None:
         """The expert level re-solved placement: gather the stacked expert

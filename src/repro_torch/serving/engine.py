@@ -3,9 +3,11 @@ SchedulerCore (core/scheduler.py) with the real-compute TorchBackend
 (serving/backend.py), ported from ``repro.serving.engine`` with the same
 constructor and public surface.
 
-In this slice the engine runs without an expert level: ``expert_level``
-must be ``None`` or a ``NullExpertLevel``.  The default private expert
-level (EPLB / Gimbal placement) is the next slice of the port.
+By default the engine builds its own expert level from ``variant`` (the
+paper's Algorithm 3, with replicas under "gimbal+rep"); pass a shared
+``ClusterExpertLevel`` (core/gimbal.make_cluster_expert_level) to let every
+engine of a cluster observe into and apply one placement, or ``None`` / a
+``NullExpertLevel`` for none.
 
 Timing is *logical*: callers pass ``now``, so behaviour is deterministic.
 """
@@ -14,7 +16,7 @@ from __future__ import annotations
 from typing import Any, List, Optional
 
 from repro_torch.core.eplb import NullExpertLevel
-from repro_torch.core.gimbal import make_queue
+from repro_torch.core.gimbal import make_queue, make_rebalancer
 from repro_torch.core.scheduler import SchedulerCore
 from repro_torch.core.types import EngineMetrics, GimbalConfig, Request
 from repro_torch.models.config import ModelConfig
@@ -41,31 +43,32 @@ class Engine:
                  kv_quant: Optional[str] = None, use_kernels: bool = False,
                  role: str = "unified", prefill_mode: str = "chunked",
                  device=None):
-        """``expert_level``: None or a NullExpertLevel in this slice; the
-        private level built from ``variant`` / ``num_expert_devices`` (and a
-        shared ClusterExpertLevel) arrive with the port's expert level."""
+        """``expert_level`` should be the ONE ClusterExpertLevel shared by
+        every engine of a cluster: routed stats from every engine aggregate
+        into the same tracker and all engines apply the same placements.
+        When omitted, the engine builds a private level over
+        ``num_expert_devices`` devices."""
         self.engine_id = engine_id
         self.cfg = model_cfg
         self.gcfg = gimbal_cfg or GimbalConfig()
         self.role = role
         if expert_level is _PRIVATE:
-            raise NotImplementedError(
-                "the port has no expert level yet: pass expert_level=None "
-                "(ROADMAP.md, Queue 1: the expert level is the next slice)")
-        if expert_level is not None and not isinstance(expert_level, NullExpertLevel):
-            raise NotImplementedError(
-                f"expert_level {type(expert_level).__name__} is not supported by "
-                "the port yet; pass None or a NullExpertLevel")
+            rebalancer = make_rebalancer(variant, model_cfg,
+                                         num_expert_devices, self.gcfg)
+        else:
+            rebalancer = (None if isinstance(expert_level, NullExpertLevel)
+                          else expert_level)
         self.backend = TorchBackend(model_cfg, params, max_slots=max_slots,
                                     max_seq=max_seq, eos_id=eos_id,
-                                    dispatch_mode=dispatch_mode, rebalancer=None,
+                                    dispatch_mode=dispatch_mode,
+                                    rebalancer=rebalancer,
                                     kv_layout=kv_layout,
                                     kv_block_size=kv_block_size,
                                     kv_quant=kv_quant, use_kernels=use_kernels,
                                     device=device)
         self.core = SchedulerCore(self.backend, make_queue(variant, self.gcfg),
                                   self.gcfg, prefill_budget=prefill_budget,
-                                  engine_id=engine_id, expert_level=None,
+                                  engine_id=engine_id, expert_level=rebalancer,
                                   prefill_mode=prefill_mode)
 
     # ------------------------------------------------------------------ public API

@@ -1,27 +1,136 @@
-"""Paged KV cache of the port, ported from ``repro.serving.kvcache``.
+"""KV-cache management of the port, ported from ``repro.serving.kvcache``.
 
-``PagedKVCache`` is a vLLM-style paged device cache: a global pool of
-``block_size``-token pages, per-slot block tables, refcounted copy-on-write
-prefix sharing keyed by ``core.prefix_cache.block_hashes``, and optional
-int8 page storage with per-(layer, page) scales.  The pages are device
-tensors and are updated IN PLACE (``index_copy``-style slice assignment and
-the decode step's appends), where the reference rebuilt whole arrays; the
-block tables, refcounts and free lists stay in numpy on the host.
+Three layers:
+  * ``SlotKVCache`` — fixed decode slots: one contiguous (L, B, S, Hkv, D)
+    cache over ``models.model.init_cache`` with per-slot occupancy.
+    ``usage()`` is the KV-usage signal Alg. 1 reads.
+  * ``PagedKVCache`` — vLLM-style paged device cache: a global pool of
+    ``block_size``-token pages, per-slot block tables, refcounted
+    copy-on-write prefix sharing keyed by ``core.prefix_cache.block_hashes``,
+    and optional int8 page storage with per-(layer, page) scales.
+  * ``BlockLedger`` — host-side block accounting.
 
-``SlotKVCache`` and ``BlockLedger`` join with the slot layout (ROADMAP.md).
+The device tensors are updated IN PLACE (slice assignment and the decode
+step's writes), where the reference rebuilt whole arrays; block tables,
+refcounts, lengths and free lists stay in numpy on the host.
 """
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch import device as devlib
 from repro_torch.core.prefix_cache import block_hashes
+from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.training.compression import quantize_int8
+
+_SKIP = -1  # write_slot axis sentinel: leaf has no batch axis, leave untouched
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def batch_axes(model_cfg: ModelConfig, max_slots: int, max_seq: int) -> Any:
+    """Per-leaf batch-axis tree for a batched model cache, found structurally:
+    the unique axis whose size differs between a batch=``max_slots`` and a
+    batch=1 cache (from ``models.model.cache_shapes``: nothing is
+    allocated).  Leaves whose shape does not depend on batch get the
+    sentinel ``-1`` (skipped by ``write_slot``); ambiguous leaves raise."""
+    if max_slots <= 1:
+        raise ValueError("batch-axis discovery requires max_slots > 1")
+    big = M.cache_shapes(model_cfg, max_slots, max_seq)
+    one = M.cache_shapes(model_cfg, 1, max_seq)
+
+    def find(b, s):
+        diff = [i for i, (x, y) in enumerate(zip(b, s)) if x != y]
+        if not diff:
+            return _SKIP
+        if len(diff) > 1:
+            raise ValueError(f"ambiguous batch axis for cache leaf {b} vs {s}")
+        return diff[0]
+
+    return _tree_map(find, big, one)
+
+
+def write_slot(cache, slot_cache, slot: int, axes) -> Any:
+    """Insert a batch=1 sub-cache into batch slot ``slot`` of the batched
+    cache, IN PLACE, at offset 0 along every other axis (the reference's
+    ``dynamic_update_slice``).  ``axes`` names the batch axis: one int for
+    every leaf, or a tree matching ``cache`` (``batch_axes``; ``-1`` skips a
+    leaf).  Returns ``cache``."""
+    ax_tree = _tree_map(lambda _: axes, cache) if isinstance(axes, int) else axes
+
+    def upd(c, s, ax):
+        if ax == _SKIP:
+            return c
+        idx = [slice(0, n) for n in s.shape]
+        idx[ax] = slice(slot, slot + 1)
+        c[tuple(idx)] = s.to(c.dtype)
+        return c
+
+    return _tree_map(upd, cache, slot_cache, ax_tree)
+
+
+class SlotKVCache:
+    """Fixed-slot device KV cache: slot i is batch row i of one contiguous
+    cache; a free min-heap hands out the lowest free slot."""
+
+    def __init__(self, model_cfg: ModelConfig, max_slots: int, max_seq: int,
+                 dtype=None, device=None):
+        if max_slots <= 1:
+            raise ValueError("slot cache requires max_slots > 1")
+        self.device = devlib.resolve(device)
+        self.model_cfg = model_cfg
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.cache = M.init_cache(model_cfg, max_slots, max_seq, dtype,
+                                  device=self.device)
+        self.write_axes = batch_axes(model_cfg, max_slots, max_seq)
+        self.slot_len = np.zeros(max_slots, np.int64)     # tokens resident per slot
+        self._free_heap: List[int] = list(range(max_slots))  # sorted => valid heap
+        self._is_free = [True] * max_slots
+
+    # --- allocation -------------------------------------------------------------
+    def alloc(self) -> Optional[int]:
+        """Lowest free slot index, via a min-heap free list."""
+        if not self._free_heap:
+            return None
+        i = heapq.heappop(self._free_heap)
+        self._is_free[i] = False
+        self.slot_len[i] = 0
+        return i
+
+    def free(self, slot: int) -> None:
+        if not self._is_free[slot]:
+            self._is_free[slot] = True
+            heapq.heappush(self._free_heap, slot)
+        self.slot_len[slot] = 0
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free_heap)
+
+    # --- metrics (Alg. 1 signal) --------------------------------------------------
+    def usage(self) -> float:
+        """Fraction of KV capacity in use: resident tokens / token capacity
+        (occupied slots / slots for an arch without attention layers)."""
+        if self.model_cfg.num_attention_layers() == 0:
+            return 1.0 - self.num_free / self.max_slots
+        return float(self.slot_len.sum()) / (self.max_slots * self.max_seq)
+
+    def kv_bytes_used(self) -> int:
+        return int(self.slot_len.sum()) * self.model_cfg.kv_bytes_per_token()
+
+    def positions(self) -> torch.Tensor:
+        return torch.as_tensor(np.minimum(self.slot_len, self.max_seq - 1),
+                               dtype=torch.int32, device=self.device)
 
 
 class PagedKVCache:
@@ -228,3 +337,46 @@ class PagedKVCache:
     def positions(self) -> torch.Tensor:
         return torch.as_tensor(np.minimum(self.slot_len, self.max_seq - 1),
                                dtype=torch.int32, device=self.device)
+
+
+class BlockLedger:
+    """vLLM-style block accounting: seq -> blocks of ``block_size`` tokens."""
+
+    def __init__(self, total_blocks: int, block_size: int = 16):
+        self.total_blocks = total_blocks
+        self.block_size = block_size
+        self.used_blocks = 0
+        self.seq_blocks: Dict[int, int] = {}
+
+    def blocks_for(self, tokens: int) -> int:
+        return -(-tokens // self.block_size)
+
+    def can_alloc(self, tokens: int) -> bool:
+        return self.used_blocks + self.blocks_for(tokens) <= self.total_blocks
+
+    def alloc(self, seq_id: int, tokens: int) -> bool:
+        need = self.blocks_for(tokens)
+        if self.used_blocks + need > self.total_blocks:
+            return False
+        self.seq_blocks[seq_id] = need
+        self.used_blocks += need
+        return True
+
+    def extend(self, seq_id: int, new_total_tokens: int) -> bool:
+        """Grow a sequence to ``new_total_tokens``; returns False on OOM."""
+        have = self.seq_blocks.get(seq_id, 0)
+        need = self.blocks_for(new_total_tokens)
+        if need <= have:
+            return True
+        if self.used_blocks + (need - have) > self.total_blocks:
+            return False
+        self.used_blocks += need - have
+        self.seq_blocks[seq_id] = need
+        return True
+
+    def release(self, seq_id: int) -> None:
+        self.used_blocks -= self.seq_blocks.pop(seq_id, 0)
+
+    @property
+    def usage(self) -> float:
+        return self.used_blocks / max(self.total_blocks, 1)

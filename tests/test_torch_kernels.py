@@ -19,14 +19,18 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode as jax_flash_decode
 from repro.kernels.flash_decode import flash_decode_paged as jax_flash_decode_paged
 from repro.kernels.moe_gemm import moe_gemm as jax_moe_gemm
+from repro.kernels.topk_router import topk_router as jax_topk_router
 from repro.kernels.topk_router import topk_router_replicated as jax_router
 from repro.models.moe import ExpertPlacement as JaxPlacement
 from repro.training.compression import quantize_int8 as jax_quantize_int8
 from repro_torch import device as devlib
-from repro_torch.kernels import (flash_decode_paged, moe_gemm, ref,
-                                 reset_launch_counts, topk_router_replicated)
+from repro_torch.kernels import (KERNELS, decode_attention, flash_decode,
+                                 flash_decode_paged, moe_gemm, ref,
+                                 reset_launch_counts, route, topk_router,
+                                 topk_router_replicated)
 from repro_torch.models.moe import ExpertPlacement
 from repro_torch.training.compression import quantize_int8
 
@@ -144,6 +148,64 @@ def test_flash_decode_paged_softcap():
     np.testing.assert_allclose(got, oracle, **TOL["float32"])
 
 
+# --- slot-cache flash-decode ---------------------------------------------------------
+
+def _slot_case(seed, b, s, hq, hkv, d, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    return (_as_dtype(rng.normal(size=(b, hq, d)), dtype),
+            _as_dtype(rng.normal(size=(b, s, hkv, d)), dtype),
+            _as_dtype(rng.normal(size=(b, s, hkv, d)), dtype))
+
+
+def _both_slot(q, k, v, lengths, dtype="float32", softcap=0.0, block_s=256):
+    """(port plain version, Pallas interpret, reference oracle) outputs."""
+    lengths = np.asarray(lengths, np.int32)
+    (qj, qt), (kj, kt), (vj, vt) = _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+    got = flash_decode(qt, kt, vt, torch.from_numpy(lengths), softcap=softcap)
+    assert got.dtype == TORCH_DT[dtype] and got.shape == q.shape
+    pallas = jax_flash_decode(qj, kj, vj, jnp.asarray(lengths), block_s=block_s,
+                              softcap=softcap, interpret=True)
+    oracle = jref.ref_flash_decode(qj, kj, vj, jnp.asarray(lengths), softcap)
+    return _np(got), _np(pallas), _np(oracle)
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,block_s", [(4, 64, 4, 2, 16, 16), (3, 100, 8, 8, 32, 32),
+                                                  (5, 48, 8, 1, 64, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_plain_matches_pallas(b, s, hq, hkv, d, block_s, dtype):
+    """Ragged lengths that are multiples of no tile, a zero-length row, a
+    one-token row and the full cache; S=100 leaves the Pallas kernel a
+    padded last block."""
+    q, k, v = _slot_case(b * 7 + s, b, s, hq, hkv, d, dtype)
+    lens = np.linspace(0, s, b).astype(np.int32)
+    lens[1] = 1
+    got, pallas, oracle = _both_slot(q, k, v, lens, dtype, block_s=block_s)
+    np.testing.assert_allclose(got, pallas, **TOL[dtype])
+    np.testing.assert_allclose(got, oracle, **TOL[dtype])
+    assert (got[lens == 0] == 0).all()       # length 0 attends to nothing: exact zeros
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_softcap(dtype):
+    """q scaled by 10 so that the scores reach where the cap bends them."""
+    q, k, v = _slot_case(13, 3, 64, 8, 2, 32, dtype)
+    lens = [0, 37, 64]
+    got, pallas, oracle = _both_slot(q * 10, k, v, lens, dtype, softcap=30.0, block_s=32)
+    np.testing.assert_allclose(got, pallas, **TOL[dtype])
+    np.testing.assert_allclose(got, oracle, **TOL[dtype])
+    assert (got[0] == 0).all()
+    uncapped, _, _ = _both_slot(q * 10, k, v, lens, dtype, softcap=0.0, block_s=32)
+    assert np.abs(uncapped - got).max() > 1e-2           # the cap changes the answer
+
+
+def test_decode_attention_entry_point_is_the_kernel_wrapper():
+    q, k, v = _slot_case(3, 2, 32, 4, 2, 16)
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    lens = torch.tensor([5, 32], dtype=torch.int64)        # ops casts to int32
+    torch.testing.assert_close(decode_attention(*args, lens, softcap=5.0),
+                               ref.ref_flash_decode(*args, lens.int(), 5.0))
+
+
 def _int8_pages(pages: np.ndarray):
     """Per-page int8 quantisation with the reference's quantize_int8."""
     import jax
@@ -248,6 +310,48 @@ def test_router_positions_count_across_tokens():
     np.testing.assert_array_equal(pos.numpy().ravel(), np.arange(t))
 
 
+# --- identity-placement router -----------------------------------------------------------
+
+def _topk_both(logits: np.ndarray, k: int, block_t: int = 64):
+    got = topk_router(torch.from_numpy(logits), k)
+    pallas = jax_topk_router(jnp.asarray(logits), k, block_t=block_t, interpret=True)
+    oracle = jref.ref_topk_router(jnp.asarray(logits), k)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(_np(got[0]), _np(want[0]), rtol=1e-5, atol=1e-6)
+        for g_, w_ in zip(got[1:], want[1:]):
+            assert g_.dtype == torch.int32
+            np.testing.assert_array_equal(g_.numpy(), np.asarray(w_))
+    return got
+
+
+@pytest.mark.parametrize("t,e,k", [(8, 128, 8), (512, 128, 8), (100, 16, 3)])
+@pytest.mark.parametrize("tied", [False, True])
+def test_topk_router_plain_matches_pallas(t, e, k, tied):
+    """Tied cases round the logits to multiples of 0.5 in [-1, 1]: many
+    equal probabilities, which go to the lowest expert id everywhere."""
+    rng = np.random.default_rng(t + e + k)
+    logits = (rng.normal(size=(t, e)) * 2).astype(np.float32)
+    if tied:
+        logits = (np.round(logits) / 2).clip(-1, 1).astype(np.float32)
+    got = _topk_both(logits, k, block_t=32)
+    # the identity router is the replicated one with identity tables
+    plc = ExpertPlacement.identity(e)
+    rep = topk_router_replicated(torch.from_numpy(logits), k, plc.replica_slots,
+                                 plc.replica_count, e)
+    for g_, w_ in zip(got, (rep[0], rep[1], rep[3])):
+        torch.testing.assert_close(g_, w_, rtol=0, atol=0)
+
+
+def test_route_entry_point_counts_positions_per_expert():
+    t, e = 96, 4
+    logits = np.zeros((t, e), np.float32)
+    logits[:, 2] = 10.0
+    gates, ids, pos = route(torch.from_numpy(logits), 1)
+    assert (ids.numpy() == 2).all()
+    np.testing.assert_array_equal(pos.numpy().ravel(), np.arange(t))
+    torch.testing.assert_close(gates, torch.ones((t, 1)))
+
+
 # --- wrappers: plain path on the CPU, never a silent fallback -------------------------
 
 def test_cpu_tensors_take_the_plain_path_without_launching():
@@ -266,8 +370,13 @@ def test_cpu_tensors_take_the_plain_path_without_launching():
     want = ref.ref_topk_router_replicated(logits, 2, plc.replica_slots, plc.replica_count, 8)
     for g_, w_ in zip(got, want):
         torch.testing.assert_close(g_, w_)
-    assert (moe_gemm.launches, flash_decode_paged.launches,
-            topk_router_replicated.launches) == (0, 0, 0)
+    for g_, w_ in zip(topk_router(logits, 2), ref.ref_topk_router(logits, 2)):
+        torch.testing.assert_close(g_, w_)
+    q, k, v = (torch.from_numpy(a) for a in _slot_case(4, 2, 32, 4, 2, 16))
+    lens = torch.tensor([0, 17], dtype=torch.int32)
+    torch.testing.assert_close(flash_decode(q, k, v, lens), ref.ref_flash_decode(q, k, v, lens))
+    assert len(KERNELS) == 5
+    assert {fn.__name__: fn.launches for fn in KERNELS} == {fn.__name__: 0 for fn in KERNELS}
 
 
 def test_no_silent_fallback_off_the_cpu():
@@ -290,6 +399,13 @@ def test_no_silent_fallback_off_the_cpu():
         topk_router_replicated(torch.empty((4, 8), device="meta"), 2,
                                torch.empty((8, 1), dtype=torch.int32, device="meta"),
                                torch.empty((8,), dtype=torch.int32, device="meta"), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_router(torch.empty((4, 8), device="meta"), 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode(torch.empty((2, 4, 16), device="meta"),
+                     torch.empty((2, 32, 2, 16), device="meta"),
+                     torch.empty((2, 32, 2, 16), device="meta"),
+                     torch.empty((2,), dtype=torch.int32, device="meta"))
     with pytest.raises(RuntimeError, match="cuda"):
         devlib.resolve("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -297,8 +413,10 @@ def test_no_silent_fallback_off_the_cpu():
 
 
 def test_port_imports_neither_jax_nor_reference():
-    """Importing every module of repro_torch (and chip_smoke.py) leaves jax
-    and the reference package out of sys.modules."""
+    """Importing every module of repro_torch (and chip_smoke.py) leaves jax,
+    the reference package and ml_dtypes (which JAX registers with numpy) out
+    of sys.modules; the expert level, the slot cache and both new kernels
+    are among the modules walked."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -307,8 +425,17 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 sys.path.insert(0, sys.argv[1])
 importlib.import_module("chip_smoke")
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
+need = {"repro_torch.core.placement", "repro_torch.core.affinity",
+        "repro_torch.core.eplb", "repro_torch.core.gimbal",
+        "repro_torch.serving.kvcache", "repro_torch.kernels.flash_decode",
+        "repro_torch.kernels.topk_router"}
+assert need <= set(sys.modules), need - set(sys.modules)
+from repro_torch.serving.kvcache import SlotKVCache, BlockLedger, batch_axes, write_slot
+from repro_torch.core.eplb import ExpertRebalancer, ClusterExpertLevel
+from repro_torch.core.gimbal import make_rebalancer, make_cluster_expert_level
+from repro_torch.kernels import flash_decode, topk_router, decode_attention, route
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

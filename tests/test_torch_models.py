@@ -17,6 +17,7 @@ from repro.models import attention as JA
 from repro.models import layers as JL
 from repro.models import model as JM
 from repro.models import moe as JMoE
+from repro.serving import kvcache as JKV
 from repro.serving.kvcache import PagedKVCache as JaxPagedKVCache
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import attention as TA
@@ -24,6 +25,7 @@ from repro_torch.models import layers as TL
 from repro_torch.models import model as TM
 from repro_torch.models import moe as TMoE
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.serving import kvcache as TKV
 from repro_torch.serving.kvcache import PagedKVCache
 
 ARCH = "qwen3-30b-a3b"
@@ -196,6 +198,28 @@ def test_gqa_decode_paged(cfgs, weights, quant, use_kernel):
             _close(got, want)
 
 
+@pytest.mark.parametrize("pos", [[5, 0, 63], [17, 40, 1]])
+def test_gqa_decode_slot(cfgs, weights, pos):
+    """One-token decode against a contiguous slot cache: the output, and the
+    new K/V written at each row's position (the last position included)."""
+    jc, tc = cfgs
+    pj = _layer0(weights[0], "attn")
+    rng = np.random.default_rng(9)
+    shape = (3, 64, jc.num_kv_heads, jc.head_dim)
+    cache = {n: rng.normal(size=shape).astype(np.float32) for n in ("k", "v")}
+    x = rng.normal(size=(3, 1, jc.d_model)).astype(np.float32)
+    cache_pos = np.array(pos, np.int32)
+    oj, cj = JA.gqa_decode(pj, jc, jnp.asarray(x), {k: jnp.asarray(v) for k, v in cache.items()},
+                           jnp.asarray(cache_pos), False)
+    ct = {k: _t(v) for k, v in cache.items()}
+    ot, ct2 = TA.gqa_decode({k: _t(v) for k, v in pj.items()}, tc, _t(x), ct,
+                            _t(cache_pos), False)
+    assert ct2 is ct                                  # written in place
+    _close(ot, oj)
+    for n in ("k", "v"):
+        _close(ct[n], cj[n])
+
+
 # --- MoE ------------------------------------------------------------------------------
 
 def _moe_case(cfgs, weights, inv):
@@ -299,4 +323,107 @@ def test_prefill_and_two_paged_decode_steps(cfgs, weights, quant):
                        atol=0 if n.endswith("scale") else 2e-4)
         kvj.slot_len += 1
         kvt.slot_len += 1
+        tokens = np.asarray(jnp.argmax(lj, -1), np.int32)[:, None]
+
+
+# --- whole model: slot cache and slot decode ----------------------------------------------
+
+def test_batch_axes_and_write_slot_match_reference(cfgs):
+    jc, tc = cfgs
+    assert TKV.batch_axes(tc, 4, 64) == JKV.batch_axes(jc, 4, 64)
+    with pytest.raises(ValueError, match="max_slots"):
+        TKV.batch_axes(tc, 1, 64)
+    rng = np.random.default_rng(10)
+    big = {"layers": {n: rng.normal(size=(jc.num_layers, 4, 64, jc.num_kv_heads,
+                                          jc.head_dim)).astype(np.float32) for n in ("k", "v")}}
+    one = {"layers": {n: rng.normal(size=(jc.num_layers, 1, 32, jc.num_kv_heads,
+                                          jc.head_dim)).astype(np.float32) for n in ("k", "v")}}
+    for axes in (TKV.batch_axes(tc, 4, 64), 1):
+        bt = jax.tree.map(_t, big)
+        got = TKV.write_slot(bt, jax.tree.map(_t, one), 2, axes)
+        want = JKV.write_slot(jax.tree.map(jnp.asarray, big), jax.tree.map(jnp.asarray, one), 2,
+                              JKV.batch_axes(jc, 4, 64) if axes != 1 else 1)
+        assert got["layers"]["k"] is bt["layers"]["k"]         # written in place
+        for n in ("k", "v"):
+            np.testing.assert_array_equal(got["layers"][n].numpy(), np.asarray(want["layers"][n]))
+
+
+def test_slot_kv_cache_and_block_ledger_match_reference(cfgs):
+    jc, tc = cfgs
+    kj, kt = JKV.SlotKVCache(jc, 4, 32), TKV.SlotKVCache(tc, 4, 32, device="cpu")
+    assert kt.cache["layers"]["k"].shape == kj.cache["layers"]["k"].shape
+    ops = [("alloc",), ("alloc",), ("alloc",), ("len", 1, 20), ("free", 0), ("alloc",),
+           ("len", 0, 31), ("free", 2), ("free", 2), ("alloc",), ("alloc",), ("alloc",)]
+    for op in ops:
+        if op[0] == "alloc":
+            assert kt.alloc() == kj.alloc()          # lowest free slot first, None when full
+        elif op[0] == "free":
+            kt.free(op[1])
+            kj.free(op[1])
+        else:
+            kt.slot_len[op[1]] = kj.slot_len[op[1]] = op[2]
+        assert kt.num_free == kj.num_free
+        assert kt.usage() == kj.usage() and kt.kv_bytes_used() == kj.kv_bytes_used()
+        np.testing.assert_array_equal(kt.positions().numpy(), np.asarray(kj.positions()))
+    lj, lt = JKV.BlockLedger(10, 4), TKV.BlockLedger(10, 4)
+    for op, *a in [("alloc", 1, 9), ("extend", 1, 12), ("can", 20), ("alloc", 2, 30),
+                   ("alloc", 2, 20), ("extend", 2, 29), ("release", 1), ("extend", 2, 29),
+                   ("can", 1), ("release", 7)]:
+        if op == "can":
+            assert lt.can_alloc(*a) == lj.can_alloc(*a)
+        elif op == "release":
+            lt.release(*a)
+            lj.release(*a)
+        else:
+            assert getattr(lt, op)(*a) == getattr(lj, op)(*a)
+        assert (lt.used_blocks, lt.usage, lt.seq_blocks) == (lj.used_blocks, lj.usage, lj.seq_blocks)
+
+
+@pytest.mark.parametrize("mode,replicated", [("dense", False), ("gather", True), ("fused", True)])
+def test_prefill_and_two_slot_decode_steps(cfgs, weights, mode, replicated):
+    """Prefill two prompts into both packages' slot caches, then two decode
+    steps of ``decode_step`` over all four rows (two free), under an
+    identity or a replicated placement with the weights laid out for it:
+    logits, stats and the caches agree."""
+    jc, tc = cfgs
+    tree, pt = weights
+    inv = np.array([0, 1, 2, 3, 4, 5, 6, 7, 1, 5], np.int32)
+    placements = np.broadcast_to(inv, (jc.num_layers, len(inv))).copy() if replicated else None
+    if replicated:
+        moe = dict(tree["blocks"]["moe"], **{n: tree["blocks"]["moe"][n][:, inv]
+                                            for n in ("w_gate", "w_up", "w_down")})
+        tree = dict(tree, blocks=dict(tree["blocks"], moe=moe))
+        pt = dict(pt, blocks=dict(pt["blocks"], moe={k: _t(v) for k, v in moe.items()}))
+    rng = np.random.default_rng(11)
+    kvj, kvt = JKV.SlotKVCache(jc, 4, 64), TKV.SlotKVCache(tc, 4, 64, device="cpu")
+    tokens = np.zeros((4, 1), np.int32)
+    for plen in (21, 32):
+        toks = rng.integers(0, jc.vocab_size, (1, 32)).astype(np.int32)
+        lj, cj, _ = JM.prefill(tree, jc, jnp.asarray(toks), JM.init_cache(jc, 1, 64),
+                               placements=placements, dispatch_mode=mode)
+        lt, ct, _ = TM.prefill(pt, tc, _t(toks).long(), TM.init_cache(tc, 1, 32, device="cpu"),
+                               placements=placements, dispatch_mode=mode)
+        _close(lt, lj)
+        sj, st = kvj.alloc(), kvt.alloc()
+        assert sj == st
+        kvj.cache = JKV.write_slot(kvj.cache, cj, sj, kvj.write_axes)
+        TKV.write_slot(kvt.cache, ct, st, kvt.write_axes)
+        kvj.slot_len[sj] = kvt.slot_len[st] = plen
+        tokens[st, 0] = int(np.argmax(np.asarray(lj)[0, plen - 1]))
+    for _ in range(2):
+        lj, kvj.cache, aj = JM.decode_step(tree, jc, jnp.asarray(tokens), kvj.cache,
+                                           kvj.positions(), placements=placements,
+                                           dispatch_mode=mode, stats=True)
+        lt, _, at = TM.decode_step(pt, tc, _t(tokens).long(), kvt.cache, kvt.positions(),
+                                   placements=placements, dispatch_mode=mode, stats=True)
+        _close(lt, lj)
+        np.testing.assert_array_equal(_np(at["expert_ids"]), np.asarray(aj["expert_ids"]))
+        np.testing.assert_array_equal(_np(at["expert_counts"]), np.asarray(aj["expert_counts"]))
+        for n in ("k", "v"):      # resident positions; the rest is never read before written
+            for row in (0, 1):
+                live = int(kvt.slot_len[row]) + 1
+                _close(kvt.cache["layers"][n][:, row, :live],
+                       np.asarray(kvj.cache["layers"][n])[:, row, :live])
+        kvj.slot_len[:2] += 1
+        kvt.slot_len[:2] += 1
         tokens = np.asarray(jnp.argmax(lj, -1), np.int32)[:, None]
