@@ -9,9 +9,12 @@
    shared-memory report.
 2. Holds each kernel against its plain PyTorch version on the card at the
    paths' full qwen3-30b-a3b shapes, shows that each gate would catch the
-   faults it is there for, and times kernel, plain version and (where one
-   PyTorch call computes the same function) that call, with CUDA events:
-   median of 20 launches, L2 flushed before each.
+   faults it is there for (tiles and chunks dropped or unmasked at the
+   kernels' own sizes; for the slot flash-decode, merges that drop a
+   partial or skip the rescale), and times kernel, plain version and
+   (where one PyTorch call computes the same function) that call, with
+   CUDA events: median of 20 launches, L2 flushed before each.  Each
+   kernel line gives the achieved TB/s of the bytes its bound counts.
 3. Checks the kernel path against the plain path end to end at full width
    in f32 (2 layers): one paged decode step, and one slot-layout decode
    step under a replicated placement whose weights ``apply_placement``
@@ -92,6 +95,29 @@ class Timer:
             out.append(s.elapsed_time(e))
         return statistics.median(out)
 
+    def device_us(self, fn, iters: int = 20) -> str:
+        """Device time per call of each kernel ``fn`` launches, from
+        torch.profiler over ``iters`` calls with the L2 flushed before each
+        (the flush's own kernel left out): where a call's time goes."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        rows = []
+        for ev in prof.key_averages():
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = getattr(ev, "self_cuda_time_total", 0.0)
+            if ev.device_type == DeviceType.CUDA and us > 0 and "FillFunctor" not in ev.key:
+                rows.append(f"{ev.key.rsplit('(', 1)[0][-48:]} {us / iters:.2f} us")
+        return "; ".join(rows) or "no device time recorded"
+
 
 def max_excess(got, want, rtol: float, atol: float) -> tuple:
     """(max |got - want|, max of |got - want| - rtol * |want| - atol): the
@@ -116,6 +142,7 @@ def check_close(name: str, got, want, rtol: float, atol: float | None = None) ->
 
 def kernel_phase(torch, timer: Timer, cfg) -> dict:
     from repro_torch.kernels import flash_decode_paged, moe_gemm, ref, topk_router_replicated
+    from repro_torch.kernels.moe_gemm import launch_plan
     from repro_torch.models.moe import ExpertPlacement
     from repro_torch.training.compression import quantize_int8
 
@@ -193,7 +220,7 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                 f"tokens={n_tok}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol}) "
                 f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
                 f"bound_ms={fd[(pages, softcap)]['bound'][0]:.4f} "
-                f"({fd[(pages, softcap)]['bound'][1]})")
+                f"({fd[(pages, softcap)]['bound'][1]}) {_tb_s(nbytes, ms)}")
     main = fd[("bf16", 0.0)]
     results["flash_decode_paged"] = dict(
         source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
@@ -235,7 +262,8 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                 log(f"kernel topk_router_replicated T={t} tables={tables_name} tied={tied}: "
                     f"max_abs_err={err:.3e} (tol 1e-5) ints_exact=True ms={ms:.4f} "
                     f"plain_ms={plain:.4f} library_ms=none "
-                    f"bound_ms={rt[(t, tables_name, tied)]['bound'][0]:.6f} (bytes)")
+                    f"bound_ms={rt[(t, tables_name, tied)]['bound'][0]:.6f} (bytes) "
+                    f"{_tb_s(nbytes, ms)}")
     main = rt[(8, "identity", False)]
     results["topk_router_replicated"] = dict(
         source="src/repro_torch/kernels/csrc/topk_router.cu",
@@ -260,11 +288,15 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                 rtol, atol_frac = MG_TOL[dtype_name]
                 atol = atol_frac * float(want.float().square().mean().sqrt())
                 err = check_close(name, got, want, rtol, atol)
-                # the gate must see a kernel that skipped the last 32-deep K
-                # tile or wrote a wrong edge of 64 output columns
-                wrong = {"last K tile dropped": ref.ref_moe_gemm(x[..., :-32], w[:, :-32]),
-                         "last F tile zeroed": torch.cat(
-                             [want[..., :-64], torch.zeros_like(want[..., -64:])], -1)}
+                # the gate must see a kernel that skipped its last K tile or
+                # wrote a wrong edge of one F tile, at this dtype's kernel's
+                # tiles (bf16: 64 deep x 128 wide; f32: 32 x 64)
+                plan = launch_plan(e, c, din, w.shape[2], dtype)
+                bk, bf = plan.block_k, plan.block_f
+                wrong = {f"last {bk}-deep K tile dropped": ref.ref_moe_gemm(x[..., :-bk],
+                                                                           w[:, :-bk]),
+                         f"last {bf}-wide F tile zeroed": torch.cat(
+                             [want[..., :-bf], torch.zeros_like(want[..., -bf:])], -1)}
                 for fault, bad in wrong.items():
                     if max_excess(bad, want, rtol, atol)[1] <= 0:
                         raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
@@ -272,6 +304,10 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                 ms = timer.ms(lambda: moe_gemm(x, w))
                 plain = timer.ms(lambda: ref.ref_moe_gemm(x, w))
                 lib = timer.ms(lambda: torch.bmm(x, w))
+                if dtype_name == "bfloat16":
+                    log(f"device time moe_gemm C={c} {proj}: kernel "
+                        f"[{timer.device_us(lambda: moe_gemm(x, w))}] torch.bmm "
+                        f"[{timer.device_us(lambda: torch.bmm(x, w))}]")
                 item = x.element_size()
                 dout = w.shape[2]
                 nbytes = (x.numel() + w.numel() + e * c * dout) * item
@@ -279,11 +315,13 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
                 mg[(dtype_name, c, proj)] = dict(err=err, ms=ms, plain=plain, lib=lib,
                                                  bound=_bound(nbytes, flops, dtype_name))
                 log(f"kernel moe_gemm dtype={dtype_name} C={c} {proj} "
-                    f"({e}x{c}x{din} @ {e}x{din}x{dout}): max_abs_err={err:.3e} "
+                    f"({e}x{c}x{din} @ {e}x{din}x{dout}; block C {plan.block_c}, grid "
+                    f"{plan.grid}, smem {plan.smem} B): max_abs_err={err:.3e} "
                     f"(rtol {rtol}, atol {atol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
                     f"library_ms(torch.bmm)={lib:.4f} "
                     f"bound_ms={mg[(dtype_name, c, proj)]['bound'][0]:.4f} "
-                    f"({mg[(dtype_name, c, proj)]['bound'][1]})")
+                    f"({mg[(dtype_name, c, proj)]['bound'][1]}) {_tb_s(nbytes, ms)} "
+                    f"bmm_{_tb_s(nbytes, lib)}")
         del w_up, w_down
     main = mg[("bfloat16", 8, "gate/up")]
     results["moe_gemm"] = dict(
@@ -302,9 +340,10 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
     B = max_slots = 8, S = max_seq = 1024, 32 / 4 heads x 128."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_decode, ref
+    from repro_torch.kernels.flash_decode import CHUNK, split_plan
 
     b, s, hq, hkv, d = 8, 1024, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    tile = 32                               # csrc/flash_decode.cu kTile
+    tile = CHUNK                            # positions of one split-pass chunk
     q = torch.randn((b, hq, d), generator=gen, device=DEVICE)
     k = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE)
     v = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE)
@@ -326,10 +365,12 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
             err = check_close(name, got, want, rtol, atol)
             if not (got[1] == 0).all():
                 raise AssertionError(f"{name}: length-0 row is not exactly zero")
-            wrong = {"no in-tile length mask": ref.ref_flash_decode(
+            wrong = {"no in-chunk length mask": ref.ref_flash_decode(
                 args[0], kk, vv, tile_end, softcap)}
             if softcap:
                 wrong["no softcap"] = ref.ref_flash_decode(*args, 0.0)
+            wrong.update(_merge_faults(torch, ref, args, softcap,
+                                       split_plan(b, s, hq, hkv, d, kk.element_size()).span))
             for fault, bad in wrong.items():
                 if max_excess(bad, want, rtol, atol)[1] <= 0:
                     raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
@@ -340,6 +381,7 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
                 row["plain"] = timer.ms(lambda: ref.ref_flash_decode(*args, softcap))
                 nbytes = 2 * q.numel() * 2 + n_tok * hkv * d * 2 * 2 + b * 4
                 row["bound"] = _bound(nbytes, 4 * n_tok * hq * d, dtype_name)
+                row["tb_s"] = _tb_s(nbytes, row["ms"])
                 row["lib"] = None
                 if not softcap:
                     # the library yardstick: one SDPA call with a boolean length
@@ -347,13 +389,19 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
                     mask = (torch.arange(s, device=DEVICE)[None, :]
                             < lengths[:, None])[:, None, None, :]
                     qs, ks, vs = qq[:, :, None, :], kk.transpose(1, 2), vv.transpose(1, 2)
-                    row["lib"] = timer.ms(lambda: F.scaled_dot_product_attention(
-                        qs, ks, vs, attn_mask=mask, enable_gqa=True))
+
+                    def sdpa():
+                        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                              enable_gqa=True)
+                    row["lib"] = timer.ms(sdpa)
+                    kernel_us = timer.device_us(lambda: flash_decode(*args))
+                    log(f"device time flash_decode: kernel [{kernel_us}] "
+                        f"sdpa [{timer.device_us(sdpa)}]")
                 log(f"kernel flash_decode dtype={dtype_name} softcap={softcap} B={b} S={s} "
                     f"tokens={n_tok}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol}) "
                     f"ms={row['ms']:.4f} plain_ms={row['plain']:.4f} library_ms"
                     f"(sdpa)={'none' if row['lib'] is None else format(row['lib'], '.4f')} "
-                    f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]})")
+                    f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) {row['tb_s']}")
             else:
                 log(f"kernel flash_decode dtype={dtype_name} softcap={softcap}: "
                     f"max_abs_err={err:.3e} (rtol {rtol}, atol {atol})")
@@ -394,7 +442,7 @@ def _topk_router_checks(torch, timer: Timer, cfg, gen) -> dict:
                                  bound=_bound(nbytes, 5 * t * e, "float32"))
             log(f"kernel topk_router T={t} tied={tied}: max_abs_err={err:.3e} (tol 1e-5) "
                 f"ints_exact=True ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
-                f"bound_ms={rt[(t, tied)]['bound'][0]:.6f} (bytes)")
+                f"bound_ms={rt[(t, tied)]['bound'][0]:.6f} (bytes) {_tb_s(nbytes, ms)}")
     main = rt[(8, False)]
     return {"topk_router": dict(
         source="src/repro_torch/kernels/csrc/topk_router.cu",
@@ -402,6 +450,27 @@ def _topk_router_checks(torch, timer: Timer, cfg, gen) -> dict:
         max_abs_err=max(v["err"] for v in rt.values()), ms=main["ms"],
         plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
         library_ms=None)}
+
+
+def _merge_faults(torch, ref, args, softcap: float, span: int) -> dict:
+    """Two wrong merges of the slot kernel's split partials (the plain
+    mirror, one partial per ``span`` positions): one that drops each row's
+    last partial, and one that adds the partials without the e^(m_i - M)
+    rescale."""
+    m, l, acc, valid = ref.ref_flash_decode_partials(*args, softcap, span)
+    last = valid.long().cumsum(-1) == valid.sum(-1, keepdim=True)
+    vm = valid[:, None, :]
+    dtype = args[0].dtype
+    no_rescale = (torch.where(vm[..., None], acc, 0.0).sum(-2)
+                  / torch.where(vm, l, 0.0).sum(-1, keepdim=True).clamp(min=1e-20))
+    return {"last partial chunk dropped":
+            ref.ref_merge_partials(m, l, acc, valid & ~last).to(dtype),
+            "merge without rescale": no_rescale.to(dtype)}
+
+
+def _tb_s(nbytes: int, ms: float) -> str:
+    """The achieved rate of the bytes the bound counts."""
+    return f"achieved_tb_s={nbytes / (ms * 1e-3) / 1e12:.3f}"
 
 
 def _bound(nbytes: int, flops: int, dtype_name: str) -> tuple:

@@ -3,7 +3,7 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 go to ``build/repro_torch_kernels/`` at the repository root, named by a hash
-of the sources and flags, so a changed source is rebuilt at first use and an
+of the source, every shared header and the flags, so a changed source is rebuilt at first use and an
 unchanged one is reused.  ``build_all`` starts one ``nvcc`` per source, all
 together.  No ``--use_fast_math``: the router's integer outputs must match
 its plain version exactly.
@@ -42,8 +42,11 @@ def nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """Every shared header counts, so a changed ``csrc/*.cuh`` rebuilds the
+    libraries that may include it."""
     h = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

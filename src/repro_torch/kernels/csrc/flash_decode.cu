@@ -2,153 +2,88 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_decode.py::flash_decode
 // (_kernel).  Same contract: q (B, Hq, D), k and v (B, S, Hkv, D), lengths
-// (B,); online softmax in f32, positions >= length masked, optional tanh
-// softcap, tiles past `length` skipped, and a row with length == 0 gives
-// exactly zero (acc / max(l, 1e-20) with l == 0).
+// (B,); online softmax in f32, positions >= length masked and never loaded,
+// optional tanh softcap, and a row with length == 0 gives exactly zero.
 //
 // Bound on the H100: bytes.  Each resident K/V token is read once
 // (2 * Hkv * D * itemsize per token); the arithmetic is ~1 FLOP per byte,
-// far below the ~295 FLOP/byte ridge.
+// far below the ~295 FLOP/byte ridge.  At the slot path's shape (B = 8,
+// S = 1024, 4 KV heads x 128) that is ~7.5 MB, ~2.3 us at 3.35 TB/s, so the
+// kernel has to spread those bytes over the whole card at once: one block
+// per (row, KV head), as the TPU kernel's grid had it, is 32 blocks on 132
+// SMs.
 //
-// Design: one block per (row, KV head) holds all G = Hq / Hkv query heads,
-// so every K/V tile is read from device memory once per group.  The
-// sequence loop runs inside the block (on the TPU it was the sequential grid
-// axis); each 32-position tile of K and V is staged in shared memory as f32
-// (K rows padded by one float so the score loop is free of bank conflicts),
-// positions past the row's length inside the last tile are masked and never
-// loaded, and (m, l, acc[G x D]) stay in shared memory in f32.  Only B * Hkv
-// blocks are in flight (32 at B = 8 on 132 SMs): that, not the arithmetic,
-// holds it back; splitting a row's sequence over blocks is later work.
-#include "common.cuh"
+// Design: split the sequence over blocks, then merge (split_decode.cuh).
+// The split pass runs (B * Hkv, n_split) blocks of 32-position chunks, each
+// holding all G query heads of its KV head so that each K/V byte is read
+// once, K and V copied with 16-byte cp.async and kept in their own dtype;
+// it writes an f32 partial (acc, m, l) per (row, query head, split) to
+// scratch that the wrapper allocates.  The merge pass rescales the partials
+// by e^(m_i - M) and divides once.  The wrapper picks n_split so that the
+// split pass fills the card (1024 blocks at the path shape; measured on the
+// card, 32-position chunks beat 64-position ones: a block's chain of copy,
+// scores, softmax and P.V is latency-bound, so shorter chains in more
+// blocks finish sooner, and the merge reads its partials in one pass).
+#include "split_decode.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 32;  // positions per shared-memory tile
+namespace sp = rt::split;
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-slot_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const int* __restrict__ lengths,
-            T* __restrict__ out, int s_max, int hkv, int d, int g, float scale,
-            float softcap) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int hq = hkv * g;
-  const int kstride = d + 1;
-  float* qs = smem;                   // g * d
-  float* ks = qs + g * d;             // kTile * (d + 1)
-  float* vs = ks + kTile * kstride;   // kTile * d
-  float* sc = vs + kTile * d;         // g * kTile: scores, then probabilities
-  float* acc = sc + g * kTile;        // g * d
-  float* m = acc + g * d;             // g
-  float* l = m + g;                   // g
-  float* alpha = l + g;               // g
-
-  int length = lengths[b];
-  length = length < 0 ? 0 : (length > s_max ? s_max : length);
-  const size_t qbase = (static_cast<size_t>(b) * hq + static_cast<size_t>(h) * g) * d;
-  for (int i = tid; i < g * d; i += nt) {
-    qs[i] = rt::to_f32(q[qbase + i]);
-    acc[i] = 0.f;
+int launch(const void* q, const void* k, const void* v, const int* lengths, float* part,
+           void* out, int b, int s_max, int hkv, int d, int g, int n_split,
+           int chunks_per_split, float scale, float softcap, cudaStream_t st) {
+  const int smem = sp::smem_bytes(d, g, static_cast<int>(sizeof(T)));
+  static int smem_allowed = 0;                    // set once per dtype (and head shape)
+  if (smem > smem_allowed) {
+    // above the default 48 KB, and all of the SM's 228 KB as shared memory
+    // so that several blocks fit on each SM
+    cudaError_t err = cudaFuncSetAttribute(sp::split_kernel<T, sp::SlotRows>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(sp::split_kernel<T, sp::SlotRows>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
   }
-  for (int i = tid; i < g; i += nt) {
-    m[i] = rt::kNegInf;
-    l[i] = 0.f;
-  }
-  __syncthreads();
-
-  const size_t row = static_cast<size_t>(b) * s_max;
-  for (int t0 = 0; t0 < length; t0 += kTile) {
-    const int n = length - t0 < kTile ? length - t0 : kTile;
-    for (int i = tid; i < kTile * d; i += nt) {
-      const int s = i / d, di = i - s * d;
-      float kx = 0.f, vx = 0.f;
-      if (s < n) {
-        const size_t off = ((row + t0 + s) * hkv + h) * d + di;
-        kx = rt::to_f32(k[off]);
-        vx = rt::to_f32(v[off]);
-      }
-      ks[s * kstride + di] = kx;
-      vs[i] = vx;
-    }
-    __syncthreads();
-    for (int i = tid; i < g * kTile; i += nt) {
-      const int gi = i / kTile, s = i - gi * kTile;
-      float x = rt::kNegInf;
-      if (s < n) {
-        const float* qr = qs + gi * d;
-        const float* kr = ks + s * kstride;
-        float dot = 0.f;
-        for (int di = 0; di < d; ++di) dot += qr[di] * kr[di];
-        x = dot * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-      }
-      sc[i] = x;
-    }
-    __syncthreads();
-    for (int gi = tid; gi < g; gi += nt) {
-      float* r = sc + gi * kTile;
-      const float m_prev = m[gi];
-      float m_new = m_prev;
-      for (int s = 0; s < kTile; ++s) m_new = fmaxf(m_new, r[s]);
-      float sum = 0.f;
-      for (int s = 0; s < kTile; ++s) {
-        const float p = expf(r[s] - m_new);  // masked: exp(-2^30 - m) == 0
-        r[s] = p;
-        sum += p;
-      }
-      const float a = expf(m_prev - m_new);
-      alpha[gi] = a;
-      l[gi] = l[gi] * a + sum;
-      m[gi] = m_new;
-    }
-    __syncthreads();
-    for (int i = tid; i < g * d; i += nt) {
-      const int gi = i / d, di = i - gi * d;
-      const float* p = sc + gi * kTile;
-      float o = 0.f;
-      for (int s = 0; s < kTile; ++s) o += p[s] * vs[s * d + di];
-      acc[i] = acc[i] * alpha[gi] + o;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < g * d; i += nt) {
-    const int gi = i / d;
-    out[qbase + i] = rt::from_f32<T>(acc[i] / fmaxf(l[gi], 1e-20f));
-  }
-}
-
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* lengths,
-            void* out, int b, int s_max, int hkv, int d, int g, float scale,
-            float softcap, size_t smem, cudaStream_t stream) {
-  slot_kernel<T><<<dim3(b, hkv), kThreads, smem, stream>>>(
+  const sp::SlotRows rows{s_max, hkv, d};
+  sp::split_kernel<T, sp::SlotRows><<<dim3(b * hkv, n_split), sp::kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lengths, static_cast<T*>(out), s_max, hkv, d, g, scale, softcap);
+      lengths, part, rows, s_max, hkv, d, g, n_split, chunks_per_split, scale, softcap);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t merge_smem = 3 * static_cast<size_t>(n_split) * sizeof(float);
+  sp::merge_kernel<T><<<b * hkv * g, sp::kMergeThreads, merge_smem, st>>>(
+      part, lengths, static_cast<T*>(out), s_max, hkv * g, d, n_split,
+      chunks_per_split * sp::kChunk);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int flash_decode_smem_bytes(int d, int g) {
-  return static_cast<int>(sizeof(float)) *
-         (g * d + kTile * (d + 1) + kTile * d + g * kTile + g * d + 3 * g);
+extern "C" int flash_decode_smem_bytes(int d, int g, int itemsize) {
+  return sp::smem_bytes(d, g, itemsize);
 }
 
+extern "C" int flash_decode_chunk() { return sp::kChunk; }
+
+// part: the wrapper's f32 scratch of B * Hq * n_split * (D + 2) floats.
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
-                                   const void* lengths, void* out, int b, int s_max,
-                                   int hkv, int d, int g, float scale, float softcap,
+                                   const void* lengths, void* part, void* out, int b,
+                                   int s_max, int hkv, int d, int g, int n_split,
+                                   int chunks_per_split, float scale, float softcap,
                                    int dtype, void* stream) {
-  const size_t smem = static_cast<size_t>(flash_decode_smem_bytes(d, g));
   const int* ln = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // The slot cache holds the model's dtype, which is q's (SlotKVCache).
   if (dtype == rt::kF32)
-    launch<float>(q, k, v, ln, out, b, s_max, hkv, d, g, scale, softcap, smem, st);
-  else if (dtype == rt::kBF16)
-    launch<__nv_bfloat16>(q, k, v, ln, out, b, s_max, hkv, d, g, scale, softcap, smem, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch<float>(q, k, v, ln, pt, out, b, s_max, hkv, d, g, n_split,
+                         chunks_per_split, scale, softcap, st);
+  if (dtype == rt::kBF16)
+    return launch<__nv_bfloat16>(q, k, v, ln, pt, out, b, s_max, hkv, d, g, n_split,
+                                 chunks_per_split, scale, softcap, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,9 +5,12 @@ Replaces the TPU kernels ``src/repro/kernels/flash_decode.py::
 flash_decode_paged`` (``_paged_kernel``) and ``flash_decode`` (``_kernel``).
 The CUDA kernels are ``csrc/flash_decode_paged.cu`` and
 ``csrc/flash_decode.cu``; each says what bounds it on the H100 (the bytes of
-the resident K/V) and how its design answers that: one block per (row, KV
-head) holding all G query heads, so each K/V tile is read once per group;
-only B * Hkv blocks are in flight.
+the resident K/V) and how its design answers that.  Both hold all G query
+heads of a KV head in one block, so each K/V byte is read once per group.
+The paged kernel runs one block per (row, KV head), so only B * Hkv blocks
+are in flight; the slot kernel also splits each row's sequence over blocks
+(``split_plan``) and merges their partials in a second launch
+(``csrc/split_decode.cuh``).
 
 On a CPU tensor each wrapper computes its plain version
 (``ref.ref_flash_decode_paged`` / ``ref.ref_flash_decode``); on a CUDA
@@ -17,6 +20,8 @@ counts its kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -26,6 +31,9 @@ from repro_torch.kernels.ref import ref_flash_decode, ref_flash_decode_paged
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _MAX_SMEM = 48 * 1024     # default dynamic shared memory limit of one block
+_MAX_DYN_SMEM = 232_448   # dynamic shared memory one H100 block may use, opted in
+CHUNK = 32                # positions per chunk of the slot kernel's split pass
+BLOCKS_PER_SM = 8         # split-pass blocks the plan aims for on each SM
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -38,10 +46,14 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_slot(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_decode_launch.argtypes = [p] * 5 + [i] * 5 + [f, f, i, p]
+    lib.flash_decode_launch.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
     lib.flash_decode_launch.restype = i
-    lib.flash_decode_smem_bytes.argtypes = [i, i]
+    lib.flash_decode_smem_bytes.argtypes = [i, i, i]
     lib.flash_decode_smem_bytes.restype = i
+    lib.flash_decode_chunk.restype = i
+    if lib.flash_decode_chunk() != CHUNK:
+        raise RuntimeError(f"flash_decode: csrc/split_decode.cuh chunks "
+                           f"{lib.flash_decode_chunk()} positions, the plan {CHUNK}")
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -113,12 +125,42 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
 flash_decode_paged.launches = 0
 
 
+@dataclass(frozen=True)
+class SplitPlan:
+    """How one slot flash-decode call is cut: ``n_split`` spans of
+    ``chunks_per_split`` chunks of ``CHUNK`` positions per (row, KV head),
+    and the f32 scratch of B * Hq * n_split * (D + 2) floats (acc, m, l)."""
+    n_split: int
+    chunks_per_split: int
+    scratch_floats: int
+
+    @property
+    def span(self) -> int:
+        return self.chunks_per_split * CHUNK
+
+
+def split_plan(b: int, s: int, hq: int, hkv: int, d: int, itemsize: int,
+               num_sms: int = 132) -> SplitPlan:
+    """Cut each row's sequence into enough spans that the split pass has
+    about ``BLOCKS_PER_SM`` blocks per SM (B * Hkv * n_split), one chunk per
+    span where that suffices.  Raises on a head dim the kernel does not
+    take: K and V rows are copied in 16-byte vectors."""
+    if d < 1 or (d * itemsize) % 16:
+        raise ValueError(f"flash_decode: head dim {d} must be a whole number of "
+                         f"16-byte vectors of {itemsize}-byte elements")
+    n_chunks = max(-(-s // CHUNK), 1)
+    want = -(-BLOCKS_PER_SM * num_sms // max(b * hkv, 1))
+    cps = -(-n_chunks // min(n_chunks, want))
+    n_split = -(-n_chunks // cps)
+    return SplitPlan(n_split, cps, b * hq * n_split * (d + 2))
+
+
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  lengths: torch.Tensor, *, softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, D); k, v: (B, S, Hkv, D) slot cache in q's dtype (f32 or
     bf16); lengths: (B,) int32 valid tokens per row.  Returns (B, Hq, D) in
     q's dtype; positions >= length are masked and a row with length 0 is
-    exactly zero."""
+    exactly zero.  One call is two launches (split, merge), counted once."""
     if q.device.type == "cpu":
         return ref_flash_decode(q, k, v, lengths, softcap)
     _check("q", q, (torch.float32, torch.bfloat16), 3)
@@ -132,17 +174,22 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_decode: inconsistent shapes "
                          f"q={tuple(q.shape)} k={tuple(k.shape)} v={tuple(v.shape)} "
                          f"lengths={tuple(lengths.shape)}")
+    plan = split_plan(b, s, hq, hkv, d, q.element_size(), _num_sms(q.device))
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_decode: k and v must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if b == 0:
         return out
     lib = _build.load("flash_decode", _bind_slot)
     g = hq // hkv
-    if lib.flash_decode_smem_bytes(d, g) > _MAX_SMEM:
+    if lib.flash_decode_smem_bytes(d, g, q.element_size()) > _MAX_DYN_SMEM:
         raise ValueError(f"flash_decode: head dim {d} and group {g} need more "
-                         f"than {_MAX_SMEM} B of shared memory")
+                         f"than {_MAX_DYN_SMEM} B of shared memory")
+    part = torch.empty(plan.scratch_floats, dtype=torch.float32, device=q.device)
     rc = lib.flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, s, hkv, d, g, d ** -0.5, float(softcap), _DTYPE_CODE[q.dtype],
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), part.data_ptr(),
+        out.data_ptr(), b, s, hkv, d, g, plan.n_split, plan.chunks_per_split,
+        d ** -0.5, float(softcap), _DTYPE_CODE[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_decode")
     flash_decode.launches += 1
@@ -150,3 +197,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -49,6 +49,63 @@ def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def ref_flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              lengths: torch.Tensor, softcap: float = 0.0,
+                              chunk: int = 64):
+    """The split pass of the slot kernel in plain PyTorch: per chunk of
+    ``chunk`` positions, the f32 online-softmax partial of each query head.
+    Returns (m (B,Hq,N), l (B,Hq,N), acc (B,Hq,N,D), valid (B,N)) with N =
+    ceil(S / chunk); a chunk is valid when it starts before the row's length,
+    and only valid chunks carry meaning.  Not on any main path: it mirrors
+    the arithmetic of ``csrc/split_decode.cuh`` for the tests and the fault
+    checks of chip_smoke.py."""
+    b, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad))
+    kf = kf.reshape(b, n, chunk, hkv, d)
+    vf = vf.reshape(b, n, chunk, hkv, d)
+    scores = torch.einsum("bhgd,bnchd->bhgnc", q.float().reshape(b, hkv, g, d), kf)
+    scores = scores * (d ** -0.5)
+    if softcap > 0:
+        scores = torch.tanh(scores / softcap) * softcap
+    pos = torch.arange(n * chunk, device=q.device).reshape(n, chunk)
+    mask = pos[None] < lengths.long()[:, None, None]                 # (B, N, chunk)
+    scores = scores.masked_fill(~mask[:, None, None], float("-inf"))
+    m = scores.amax(-1)                                              # (B, Hkv, G, N)
+    p = torch.exp(scores - m[..., None])                             # NaN in empty chunks
+    l = p.sum(-1)
+    acc = torch.einsum("bhgnc,bnchd->bhgnd", p, vf)
+    valid = mask[..., 0]
+    return (m.reshape(b, hq, n), l.reshape(b, hq, n), acc.reshape(b, hq, n, d), valid)
+
+
+def ref_merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """The merge pass: sum_i e^(m_i - M) acc_i / max(sum_i e^(m_i - M) l_i,
+    1e-20) over the valid chunks, M their largest m.  A row with no valid
+    chunk (length 0) is exactly zero.  Returns (B, Hq, D) f32."""
+    vm = valid[:, None, :]
+    mx = torch.where(vm, m, torch.full_like(m, float("-inf"))).amax(-1, keepdim=True)
+    # invalid chunks hold NaN (e^(-inf - -inf)); they get weight 0 and are zeroed
+    w = torch.where(vm, torch.exp(m - mx), torch.zeros_like(m))
+    num = (w[..., None] * acc.masked_fill(~vm[..., None], 0.0)).sum(-2)
+    den = (w * l.masked_fill(~vm, 0.0)).sum(-1, keepdim=True)
+    return num / torch.clamp(den, min=1e-20)
+
+
+def ref_flash_decode_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           lengths: torch.Tensor, softcap: float = 0.0,
+                           chunk: int = 64) -> torch.Tensor:
+    """``ref_flash_decode`` computed as the slot kernel computes it: chunk
+    partials, then the log-sum-exp merge.  Returns (B, Hq, D) in q's dtype."""
+    parts = ref_flash_decode_partials(q, k, v, lengths, softcap, chunk)
+    return ref_merge_partials(*parts).to(q.dtype)
+
+
 def ref_flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, block_tables: torch.Tensor,
                            lengths: torch.Tensor, softcap: float = 0.0,

@@ -27,10 +27,13 @@ from repro.kernels.topk_router import topk_router_replicated as jax_router
 from repro.models.moe import ExpertPlacement as JaxPlacement
 from repro.training.compression import quantize_int8 as jax_quantize_int8
 from repro_torch import device as devlib
-from repro_torch.kernels import (KERNELS, decode_attention, flash_decode,
+from repro_torch.kernels import (KERNELS, _build, decode_attention, flash_decode,
                                  flash_decode_paged, moe_gemm, ref,
                                  reset_launch_counts, route, topk_router,
                                  topk_router_replicated)
+from repro_torch.kernels.flash_decode import CHUNK, split_plan
+from repro_torch.kernels.moe_gemm import check_bf16_shapes
+from repro_torch.kernels.moe_gemm import launch_plan as moe_gemm_plan
 from repro_torch.models.moe import ExpertPlacement
 from repro_torch.training.compression import quantize_int8
 
@@ -71,6 +74,34 @@ def test_moe_gemm_plain_matches_pallas(e, c, d, f, dtype):
     np.testing.assert_allclose(_np(got), _np(jax_moe_gemm(xj, wj, interpret=True)),
                                **TOL[dtype])
     np.testing.assert_allclose(_np(got), _np(jref.ref_moe_gemm(xj, wj)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("c,block_c,c_tiles,smem", [(8, 8, 1, 74_240), (48, 48, 1, 97_280),
+                                                     (320, 64, 5, 106_496)])
+def test_moe_gemm_bf16_launch_plan(c, block_c, c_tiles, smem):
+    """The bf16 kernel's grid (F-tiles, C-tiles, E) and dynamic shared
+    memory at qwen3 widths: gate/up (2048 -> 768) and down (768 -> 2048);
+    C above 64 takes several C-tiles, and no plan exceeds what one H100
+    block may use."""
+    up = moe_gemm_plan(128, c, 2048, 768, torch.bfloat16)
+    down = moe_gemm_plan(128, c, 768, 2048, torch.bfloat16)
+    assert (up.block_c, up.block_f, up.block_k) == (block_c, 128, 64)
+    assert up.grid == (6, c_tiles, 128) and down.grid == (16, c_tiles, 128)
+    assert up.smem == down.smem == smem <= 232_448
+    assert up.n_tiles == block_c // 8
+    f32 = moe_gemm_plan(128, c, 2048, 768, torch.float32)     # CUDA cores, static smem
+    assert (f32.block_c, f32.block_f, f32.block_k, f32.smem) == (32, 64, 32, 0)
+
+
+def test_moe_gemm_bf16_rejects_rows_that_are_not_16_bytes():
+    check_bf16_shapes(2048, 768)
+    check_bf16_shapes(768, 2048)
+    for d, f in ((2047, 768), (2048, 764), (12, 8)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            check_bf16_shapes(d, f)
+        with pytest.raises(ValueError, match="multiples of 8"):
+            moe_gemm_plan(4, 8, d, f, torch.bfloat16)
+    moe_gemm_plan(4, 8, 2047, 764, torch.float32)              # f32 takes any shape
 
 
 def test_moe_gemm_zero_rows_stay_zero():
@@ -204,6 +235,71 @@ def test_decode_attention_entry_point_is_the_kernel_wrapper():
     lens = torch.tensor([5, 32], dtype=torch.int64)        # ops casts to int32
     torch.testing.assert_close(decode_attention(*args, lens, softcap=5.0),
                                ref.ref_flash_decode(*args, lens.int(), 5.0))
+
+
+# --- the slot kernel's split-and-merge arithmetic -------------------------------------
+
+@pytest.mark.parametrize("chunk,s", [(16, 40), (CHUNK, 2 * CHUNK + 2)])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_merge_mirror_matches_plain_and_pallas(chunk, s, softcap, dtype):
+    """The plain mirror of the split pass (per-chunk partials) and merge
+    (log-sum-exp) against the one-pass plain version and the Pallas kernel,
+    at lengths 0, 1, CH-1, CH, CH+1 and S; length 0 gives exact zeros."""
+    lens = np.array([0, 1, chunk - 1, chunk, chunk + 1, s], np.int32)
+    q, k, v = _slot_case(chunk + s, len(lens), s, 8, 2, 32, dtype)
+    q = q * 10 if softcap else q
+    got, pallas, oracle = _both_slot(q, k, v, lens, dtype, softcap=softcap, block_s=32)
+    (_, qt), (_, kt), (_, vt) = _pair(q, dtype), _pair(k, dtype), _pair(v, dtype)
+    split = _np(ref.ref_flash_decode_split(qt, kt, vt, torch.from_numpy(lens), softcap, chunk))
+    for want in (got, pallas, oracle):
+        np.testing.assert_allclose(split, want, **TOL[dtype])
+    assert (split[0] == 0).all()
+
+
+def test_split_partials_merge_faults_are_visible():
+    """What the merge must not do: drop a row's last partial chunk, or add
+    the partials without the e^(m_i - M) rescale, each moves the output
+    well past the f32 tolerance; an empty row has no valid chunk."""
+    lens = np.array([0, 5, 33, 64], np.int32)
+    q, k, v = (torch.from_numpy(a) for a in _slot_case(21, 4, 64, 4, 2, 16))
+    m, l, acc, valid = ref.ref_flash_decode_partials(q * 4, k, v, torch.from_numpy(lens),
+                                                     chunk=16)
+    assert valid.sum(-1).tolist() == [0, 1, 3, 4]
+    want = ref.ref_flash_decode(q * 4, k, v, torch.from_numpy(lens))
+    torch.testing.assert_close(ref.ref_merge_partials(m, l, acc, valid), want,
+                               **TOL["float32"])
+    last = valid.long().cumsum(-1) == valid.sum(-1, keepdim=True)
+    dropped = ref.ref_merge_partials(m, l, acc, valid & ~last)
+    vm = valid[:, None, :, None]
+    no_rescale = (torch.where(vm, acc, 0.0).sum(-2)
+                  / torch.where(vm[..., 0], l, 0.0).sum(-1, keepdim=True).clamp(min=1e-20))
+    for bad in (dropped, no_rescale):
+        assert (bad[1:] - want[1:]).abs().max() > 1e-2
+    assert (dropped[0] == 0).all() and (no_rescale[0] == 0).all()
+
+
+def test_flash_decode_split_plan():
+    """1024 split-pass blocks at the slot path's shape (B=8, S=1024, 4 KV
+    heads x 128, bf16) with one chunk each; wider batches take several
+    chunks per block so the scratch stays bounded; head dims that are not
+    whole 16-byte vectors raise."""
+    assert CHUNK == 32
+    plan = split_plan(8, 1024, 32, 4, 128, 2)
+    assert (plan.n_split, plan.chunks_per_split, plan.span) == (32, 1, CHUNK)
+    assert 8 * 4 * plan.n_split == 1024
+    assert plan.scratch_floats * 4 == 8 * 32 * 32 * 130 * 4 == 4_259_840
+    wide = split_plan(64, 1024, 32, 4, 128, 2)
+    assert (wide.n_split, wide.chunks_per_split) == (5, 7)
+    assert wide.n_split * wide.span >= 1024 > (wide.n_split - 1) * wide.span
+    long = split_plan(8, 32768, 32, 4, 128, 2)
+    assert long.n_split * long.span >= 32768 and long.n_split <= 33
+    assert split_plan(8, 0, 32, 4, 128, 2).n_split == 1
+    assert split_plan(8, 1024, 32, 4, 128, 4).n_split == 32          # f32, same cut
+    split_plan(8, 1024, 32, 4, 120, 2)                               # 15 vectors a row
+    for d, item in ((12, 2), (6, 4), (0, 2)):
+        with pytest.raises(ValueError, match="head dim"):
+            split_plan(8, 1024, 32, 4, d, item)
 
 
 def _int8_pages(pages: np.ndarray):
@@ -410,6 +506,26 @@ def test_no_silent_fallback_off_the_cpu():
         devlib.resolve("cuda")
     with pytest.raises(RuntimeError, match="cuda"):
         devlib.resolve(None)                      # the default is the card
+
+
+def test_library_hash_covers_every_shared_header(tmp_path, monkeypatch):
+    """A changed shared header renames (so rebuilds) every library; a
+    changed source renames only its own."""
+    for src in _build.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = {n: _build._lib_path(n) for n in _build.SOURCES}
+    hdr = tmp_path / "split_decode.cuh"
+    hdr.write_text(hdr.read_text() + "\n// changed\n")
+    after = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    (tmp_path / "extra.cuh").write_text("#pragma once\n")
+    assert _build._lib_path("moe_gemm") != after["moe_gemm"]
+    src = tmp_path / "moe_gemm.cu"
+    src.write_text(src.read_text() + "\n")
+    final = {n: _build._lib_path(n) for n in _build.SOURCES}
+    assert final["flash_decode"] == _build._lib_path("flash_decode")
+    assert final["moe_gemm"] != after["moe_gemm"]
 
 
 def test_port_imports_neither_jax_nor_reference():
