@@ -10,8 +10,10 @@
 2. Holds each kernel against its plain PyTorch version on the card at the
    paths' full qwen3-30b-a3b shapes, shows that each gate would catch the
    faults it is there for (tiles and chunks dropped or unmasked at the
-   kernels' own sizes; for the slot flash-decode, merges that drop a
-   partial or skip the rescale), and times kernel, plain version and
+   kernels' own sizes; for both flash-decodes, merges that drop a partial
+   or skip the rescale; for the paged one, chunks that read the wrong page
+   or, on int8 pages, the wrong scales), checks the paged flash-decode at a
+   second page size (48) too, and times kernel, plain version and
    (where one PyTorch call computes the same function) that call, with
    CUDA events: median of 20 launches, L2 flushed before each.  Each
    kernel line gives the achieved TB/s of the bytes its bound counts.
@@ -141,10 +143,9 @@ def check_close(name: str, got, want, rtol: float, atol: float | None = None) ->
 # ----------------------------------------------------------------------------- kernels
 
 def kernel_phase(torch, timer: Timer, cfg) -> dict:
-    from repro_torch.kernels import flash_decode_paged, moe_gemm, ref, topk_router_replicated
+    from repro_torch.kernels import moe_gemm, ref, topk_router_replicated
     from repro_torch.kernels.moe_gemm import launch_plan
     from repro_torch.models.moe import ExpertPlacement
-    from repro_torch.training.compression import quantize_int8
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
@@ -154,80 +155,7 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
     def randn(*shape, dtype=torch.float32, std=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
 
-    # --- paged flash-decode: B = max_slots = 8, NB = max_seq / 16 = 64 ----------
-    b, hq, hkv, d, bs, nb = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16, 64
-    pool = b * nb + 1
-    q = randn(b, hq, d, dtype=torch.bfloat16)
-    kp = randn(pool, bs, hkv, d, dtype=torch.bfloat16)
-    vp = randn(pool, bs, hkv, d, dtype=torch.bfloat16)
-    perm = torch.randperm(pool - 1, generator=gen, device=dev)[:b * nb] + 1
-    tables = perm.reshape(b, nb).to(torch.int32)
-    lengths = torch.randint(1, nb * bs + 1, (b,), generator=gen, device=dev).to(torch.int32)
-    lengths[3] = 0
-    kq, ksc = torch.vmap(quantize_int8)(kp.reshape(pool, -1))
-    vq, vsc = torch.vmap(quantize_int8)(vp.reshape(pool, -1))
-    kq, vq = kq.reshape(kp.shape), vq.reshape(vp.shape)
-    # lengths rounded up to the end of their last page: what a kernel that
-    # ignored the in-page length mask would attend to
-    page_end = ((lengths + bs - 1) // bs * bs).to(torch.int32)
-    n_tok = int(lengths.sum())
-    fd = {}
-    for pages, (kk, vv, ks, vs) in (("bf16", (kp, vp, None, None)),
-                                    ("int8", (kq, vq, ksc, vsc)),
-                                    ("f32", (kp.float(), vp.float(), None, None)),
-                                    ("int8/f32 q", (kq, vq, ksc, vsc))):
-        qq = q.float() if pages in ("f32", "int8/f32 q") else q
-        rtol, atol = FD_TOL[str(qq.dtype).removeprefix("torch.")]
-        for softcap in (0.0, 30.0):
-            # softcap cases scale q so that the scores reach where the cap
-            # bends them, as the CPU test does
-            args = (qq * 10 if softcap else qq, kk, vv, tables, lengths)
-            kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
-            name = f"flash_decode_paged[{pages},softcap={softcap}]"
-            got = flash_decode_paged(*args, **kw)
-            want = ref.ref_flash_decode_paged(*args, **kw)
-            torch.cuda.synchronize()
-            err = check_close(name, got, want, rtol, atol)
-            if not (got[3] == 0).all():
-                raise AssertionError("flash_decode_paged: length-0 row is not exactly zero")
-            # the gate must be tight enough to see the faults it is there for
-            wrong = {"no length mask": ref.ref_flash_decode_paged(
-                args[0], kk, vv, tables, page_end, **kw)}
-            if softcap:
-                wrong["no softcap"] = ref.ref_flash_decode_paged(*args, **{**kw, "softcap": 0.0})
-            if ks is not None:
-                wrong["stale page scale"] = ref.ref_flash_decode_paged(
-                    *args, **{**kw, "k_scale": ks.roll(1), "v_scale": vs.roll(1)})
-            for fault, bad in wrong.items():
-                if max_excess(bad, want, rtol, atol)[1] <= 0:
-                    raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
-                                         f"from the plain version")
-            if pages not in ("bf16", "int8"):
-                log(f"kernel flash_decode_paged pages={pages} softcap={softcap}: "
-                    f"max_abs_err={err:.3e} (rtol {rtol}, atol {atol})")
-                fd[(pages, softcap)] = dict(err=err)
-                continue
-            ms = timer.ms(lambda: flash_decode_paged(*args, **kw))
-            plain = timer.ms(lambda: ref.ref_flash_decode_paged(*args, **kw))
-            kv_item = 1 if pages == "int8" else 2
-            nbytes = (2 * q.numel() * 2 + n_tok * hkv * d * 2 * kv_item
-                      + tables.numel() * 4 + b * 4
-                      + (2 * 4 * int(((lengths + bs - 1) // bs).sum()) if ks is not None else 0))
-            flops = 4 * n_tok * hq * d
-            fd[(pages, softcap)] = dict(err=err, ms=ms, plain=plain,
-                                        bound=_bound(nbytes, flops, "bfloat16"))
-            log(f"kernel flash_decode_paged pages={pages} softcap={softcap} B={b} NB={nb} "
-                f"tokens={n_tok}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol}) "
-                f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
-                f"bound_ms={fd[(pages, softcap)]['bound'][0]:.4f} "
-                f"({fd[(pages, softcap)]['bound'][1]}) {_tb_s(nbytes, ms)}")
-    main = fd[("bf16", 0.0)]
-    results["flash_decode_paged"] = dict(
-        source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
-        replaces="src/repro/kernels/flash_decode.py:157",
-        max_abs_err=max(v["err"] for v in fd.values()), ms=main["ms"],
-        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
-        library_ms=None)
+    results.update(_paged_flash_decode_checks(torch, timer, cfg, gen))
 
     # --- router: T = 8 (decode) and 512 (prefill bucket) ------------------------
     e, k = cfg.num_experts, cfg.moe_top_k
@@ -335,6 +263,151 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
     return results
 
 
+def _paged_pool(torch, gen, b: int, nb: int, bs: int, hkv: int, d: int):
+    """A bf16 page pool of b * nb pages plus the garbage page 0, its int8
+    quantisation with per-page scales (quantize_int8, as PagedKVCache
+    stores it), and scattered block tables that never name page 0."""
+    from repro_torch.training.compression import quantize_int8
+
+    pool = b * nb + 1
+    kp = torch.randn((pool, bs, hkv, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    vp = torch.randn((pool, bs, hkv, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    perm = torch.randperm(pool - 1, generator=gen, device=DEVICE)[:b * nb] + 1
+    tables = perm.reshape(b, nb).to(torch.int32)
+    kq, ksc = torch.vmap(quantize_int8)(kp.reshape(pool, -1))
+    vq, vsc = torch.vmap(quantize_int8)(vp.reshape(pool, -1))
+    return kp, vp, kq.reshape(kp.shape), vq.reshape(vp.shape), ksc, vsc, tables
+
+
+def _paged_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
+    """Kernel 1 at the paged path's shape (B = max_slots = 8, NB = max_seq /
+    16 = 64 pages of 16 positions, 32 / 4 heads x 128) for the four (q,
+    page) dtype pairs the path makes, softcap 0 and 30, with the fault
+    checks its gate must see and its times; then at 48-position pages (22
+    a row), which straddle the 32-position chunks and are no power of two,
+    to show that the block-table map is not tied to 16."""
+    from repro_torch.kernels import flash_decode_paged, ref
+    from repro_torch.kernels.flash_decode import split_plan
+
+    b, hq, hkv, d = 8, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = torch.randn((b, hq, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+    fd = {}
+    for bs, nb in ((16, 64), (48, 22)):
+        path = bs == 16
+        kp, vp, kq, vq, ksc, vsc, tables = _paged_pool(torch, gen, b, nb, bs, hkv, d)
+        if path:
+            lengths = torch.randint(1, nb * bs + 1, (b,), generator=gen, device=DEVICE)
+            lengths[3] = 0
+        else:
+            lengths = torch.tensor([nb * bs, 0, 1, bs + 1, 33, 511, 700, 1000], device=DEVICE)
+        lengths = lengths.to(torch.int32)
+        n_tok = int(lengths.sum())
+        span = split_plan(b, nb * bs, hq, hkv, d, 2).span
+        for pages, (kk, vv, ks, vs) in (("bf16", (kp, vp, None, None)),
+                                        ("int8", (kq, vq, ksc, vsc)),
+                                        ("f32", (kp.float(), vp.float(), None, None)),
+                                        ("int8/f32 q", (kq, vq, ksc, vsc))):
+            qq = q.float() if pages in ("f32", "int8/f32 q") else q
+            rtol, atol = FD_TOL[str(qq.dtype).removeprefix("torch.")]
+            for softcap in (0.0, 30.0):
+                # softcap cases scale q so that the scores reach where the
+                # cap bends them, as the CPU test does
+                args = (qq * 10 if softcap else qq, kk, vv, tables, lengths)
+                kw = dict(k_scale=ks, v_scale=vs, softcap=softcap)
+                name = f"flash_decode_paged[BS={bs},{pages},softcap={softcap}]"
+                got = flash_decode_paged(*args, **kw)
+                want = ref.ref_flash_decode_paged(*args, **kw)
+                torch.cuda.synchronize()
+                err = check_close(name, got, want, rtol, atol)
+                if not (got[lengths == 0] == 0).all():
+                    raise AssertionError(f"{name}: length-0 row is not exactly zero")
+                fd[(bs, pages, softcap)] = row = dict(err=err)
+                line = (f"kernel flash_decode_paged BS={bs} NB={nb} pages={pages} "
+                        f"softcap={softcap} tokens={n_tok}: max_abs_err={err:.3e} "
+                        f"(rtol {rtol}, atol {atol})")
+                if not path:
+                    log(line)
+                    continue
+                # the gate must be tight enough to see the faults it is there for
+                wrong = _paged_faults(torch, ref, args, kw, span)
+                if softcap:
+                    wrong["no softcap"] = ref.ref_flash_decode_paged(
+                        *args, **{**kw, "softcap": 0.0})
+                if ks is not None:
+                    wrong["stale page scale"] = ref.ref_flash_decode_paged(
+                        *args, **{**kw, "k_scale": ks.roll(1), "v_scale": vs.roll(1)})
+                for fault, bad in wrong.items():
+                    if max_excess(bad, want, rtol, atol)[1] <= 0:
+                        raise AssertionError(f"{name}: the tolerance cannot tell "
+                                             f"{fault!r} from the plain version")
+                line += f" faults_outside_gate={len(wrong)}"
+                if pages not in ("bf16", "int8"):
+                    log(line)
+                    continue
+                row["ms"] = timer.ms(lambda: flash_decode_paged(*args, **kw))
+                row["plain"] = timer.ms(lambda: ref.ref_flash_decode_paged(*args, **kw))
+                if not softcap:
+                    log(f"device time flash_decode_paged pages={pages}: kernel "
+                        f"[{timer.device_us(lambda: flash_decode_paged(*args, **kw))}]")
+                kv_item = 1 if pages == "int8" else 2
+                n_pages = int(((lengths + bs - 1) // bs).sum())
+                nbytes = (2 * q.numel() * 2 + n_tok * hkv * d * 2 * kv_item
+                          + tables.numel() * 4 + b * 4 + (2 * 4 * n_pages if ks is not None else 0))
+                row["bound"] = _bound(nbytes, 4 * n_tok * hq * d, "bfloat16")
+                log(f"{line} ms={row['ms']:.4f} plain_ms={row['plain']:.4f} library_ms=none "
+                    f"bound_ms={row['bound'][0]:.4f} ({row['bound'][1]}) "
+                    f"{_tb_s(nbytes, row['ms'])}")
+    main = fd[(16, "bf16", 0.0)]
+    return {"flash_decode_paged": dict(
+        source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+        replaces="src/repro/kernels/flash_decode.py:157",
+        max_abs_err=max(v["err"] for v in fd.values()), ms=main["ms"],
+        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
+        library_ms=None)}
+
+
+def _paged_faults(torch, ref, args, kw, span: int) -> dict:
+    """Wrong answers a paged split kernel could give, each computed by the
+    plain versions on the same inputs: no length mask inside the last page
+    or the last chunk;
+    the merge dropping each row's last partial or skipping the rescale; a
+    chunk reading its later pages as the physical pages after its first's;
+    and for int8 pages, one scale pair for a whole chunk (its first page's)
+    or the V scale inside l as well as in the P.V weights."""
+    from repro_torch.kernels.flash_decode import CHUNK
+
+    q, kp, vp, tables, lengths = args
+    pool, bs = kp.shape[0], kp.shape[1]
+    nb = tables.shape[1]
+    wrong = {}
+    for fault, tile in (("no length mask", bs), ("no in-chunk length mask", CHUNK)):
+        end = ((lengths + tile - 1) // tile * tile).clamp(max=nb * bs).to(torch.int32)
+        wrong[fault] = ref.ref_flash_decode_paged(q, kp, vp, tables, end, **kw)
+    parts = ref.ref_flash_decode_paged_partials(*args, **kw, chunk=span)
+    wrong.update(_merge_faults(torch, ref, parts, q.dtype))
+    # the logical block that holds the first position of block j's chunk
+    j = torch.arange(nb, device=tables.device)
+    first = j * bs // CHUNK * CHUNK // bs
+    contiguous = (tables[:, first].long() + (j - first)) % pool
+    wrong["chunk reads contiguous pages"] = ref.ref_flash_decode_paged(
+        q, kp, vp, contiguous.to(torch.int32), lengths, **kw)
+    if kw["k_scale"] is not None:
+        b, hkv, d = q.shape[0], kp.shape[2], kp.shape[3]
+        pos = torch.arange(nb * bs, device=tables.device)
+        chunk_page = tables[:, pos // CHUNK * CHUNK // bs].long()      # (B, NB * BS)
+        store = [x[tables.long()].reshape(b, nb * bs, hkv, d) for x in (kp, vp)]
+        wrong["one scale per chunk"] = ref.ref_merge_partials(*ref.ref_flash_decode_partials(
+            q, *store, lengths, kw["softcap"], span, k_scale=kw["k_scale"][chunk_page],
+            v_scale=kw["v_scale"][chunk_page])).to(q.dtype)
+        # over V = 1 the P.V weights sum to sum_s p_s * v_scale_s: that l
+        m, _, acc, valid = parts
+        _, _, acc1, _ = ref.ref_flash_decode_paged_partials(
+            q, kp, torch.ones_like(vp), tables, lengths, **kw, chunk=span)
+        wrong["V scale inside l"] = ref.ref_merge_partials(m, acc1[..., 0], acc,
+                                                           valid).to(q.dtype)
+    return wrong
+
+
 def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
     """Kernel 4 over a contiguous slot cache at the slot path's width:
     B = max_slots = 8, S = max_seq = 1024, 32 / 4 heads x 128."""
@@ -369,8 +442,9 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
                 args[0], kk, vv, tile_end, softcap)}
             if softcap:
                 wrong["no softcap"] = ref.ref_flash_decode(*args, 0.0)
-            wrong.update(_merge_faults(torch, ref, args, softcap,
-                                       split_plan(b, s, hq, hkv, d, kk.element_size()).span))
+            span = split_plan(b, s, hq, hkv, d, kk.element_size()).span
+            wrong.update(_merge_faults(torch, ref, ref.ref_flash_decode_partials(
+                *args, softcap, span), qq.dtype))
             for fault, bad in wrong.items():
                 if max_excess(bad, want, rtol, atol)[1] <= 0:
                     raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
@@ -452,15 +526,14 @@ def _topk_router_checks(torch, timer: Timer, cfg, gen) -> dict:
         library_ms=None)}
 
 
-def _merge_faults(torch, ref, args, softcap: float, span: int) -> dict:
-    """Two wrong merges of the slot kernel's split partials (the plain
-    mirror, one partial per ``span`` positions): one that drops each row's
-    last partial, and one that adds the partials without the e^(m_i - M)
-    rescale."""
-    m, l, acc, valid = ref.ref_flash_decode_partials(*args, softcap, span)
+def _merge_faults(torch, ref, parts, dtype) -> dict:
+    """Two wrong merges of a decode kernel's split partials ``parts`` (m, l,
+    acc, valid from the plain mirror, one partial per split span), as
+    ``dtype``: one that drops each row's last partial, and one that adds the
+    partials without the e^(m_i - M) rescale."""
+    m, l, acc, valid = parts
     last = valid.long().cumsum(-1) == valid.sum(-1, keepdim=True)
     vm = valid[:, None, :]
-    dtype = args[0].dtype
     no_rescale = (torch.where(vm[..., None], acc, 0.0).sum(-2)
                   / torch.where(vm, l, 0.0).sum(-1, keepdim=True).clamp(min=1e-20))
     return {"last partial chunk dropped":
@@ -835,7 +908,8 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
 
 def _report_trace(prof, wall_s: float, label: str) -> None:
     """Device busy share over the traced run and the kernels that took the
-    most device time (summed over launches).  Only the device's own events
+    most device time (summed over launches), with the decode-attention
+    split and merge passes listed wherever they rank.  Only the device's own events
     count: an operator's row repeats the time of the kernels it launched."""
     from torch.autograd import DeviceType
     rows = []
@@ -853,8 +927,11 @@ def _report_trace(prof, wall_s: float, label: str) -> None:
         return
     log(f"trace[{label}]: wall_ms={1e3 * wall_s:.3f} device_busy_ms={busy_ms:.3f} "
         f"busy_share={busy_ms / (1e3 * wall_s):.4f} idle_share={1 - busy_ms / (1e3 * wall_s):.4f}")
-    for us, count, key in sorted(rows, reverse=True)[:10]:
-        log(f"trace[{label}]:   {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
+    ranked = sorted(rows, reverse=True)
+    for i, (us, count, key) in enumerate(ranked):
+        # the ten largest rows, and the decode-attention passes wherever they rank
+        if i < 10 or "rt::split::" in key:
+            log(f"trace[{label}]:   {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
 
 
 # ----------------------------------------------------------------------------- main

@@ -26,42 +26,7 @@
 // blocks finish sooner, and the merge reads its partials in one pass).
 #include "split_decode.cuh"
 
-namespace {
-
 namespace sp = rt::split;
-
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* lengths, float* part,
-           void* out, int b, int s_max, int hkv, int d, int g, int n_split,
-           int chunks_per_split, float scale, float softcap, cudaStream_t st) {
-  const int smem = sp::smem_bytes(d, g, static_cast<int>(sizeof(T)));
-  static int smem_allowed = 0;                    // set once per dtype (and head shape)
-  if (smem > smem_allowed) {
-    // above the default 48 KB, and all of the SM's 228 KB as shared memory
-    // so that several blocks fit on each SM
-    cudaError_t err = cudaFuncSetAttribute(sp::split_kernel<T, sp::SlotRows>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(sp::split_kernel<T, sp::SlotRows>,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_allowed = smem;
-  }
-  const sp::SlotRows rows{s_max, hkv, d};
-  sp::split_kernel<T, sp::SlotRows><<<dim3(b * hkv, n_split), sp::kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      lengths, part, rows, s_max, hkv, d, g, n_split, chunks_per_split, scale, softcap);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t merge_smem = 3 * static_cast<size_t>(n_split) * sizeof(float);
-  sp::merge_kernel<T><<<b * hkv * g, sp::kMergeThreads, merge_smem, st>>>(
-      part, lengths, static_cast<T*>(out), s_max, hkv * g, d, n_split,
-      chunks_per_split * sp::kChunk);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
 
 extern "C" int flash_decode_smem_bytes(int d, int g, int itemsize) {
   return sp::smem_bytes(d, g, itemsize);
@@ -78,12 +43,14 @@ extern "C" int flash_decode_launch(const void* q, const void* k, const void* v,
   const int* ln = static_cast<const int*>(lengths);
   float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const sp::SlotRows rows{s_max, hkv, d};
   // The slot cache holds the model's dtype, which is q's (SlotKVCache).
   if (dtype == rt::kF32)
-    return launch<float>(q, k, v, ln, pt, out, b, s_max, hkv, d, g, n_split,
-                         chunks_per_split, scale, softcap, st);
+    return sp::launch<float, float>(q, k, v, ln, pt, out, rows, sp::NoScales{}, b, s_max,
+                                    hkv, d, g, n_split, chunks_per_split, scale, softcap, st);
   if (dtype == rt::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, ln, pt, out, b, s_max, hkv, d, g, n_split,
-                                 chunks_per_split, scale, softcap, st);
+    return sp::launch<__nv_bfloat16, __nv_bfloat16>(
+        q, k, v, ln, pt, out, rows, sp::NoScales{}, b, s_max, hkv, d, g, n_split,
+        chunks_per_split, scale, softcap, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

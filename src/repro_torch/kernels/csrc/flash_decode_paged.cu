@@ -1,158 +1,85 @@
 // Paged flash-decode: one-token GQA attention over a paged KV pool.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_decode.py::flash_decode_paged
-// (_paged_kernel).  Same contract: walk each row's block table, online
-// softmax in f32, mask positions >= length, optional tanh softcap, int8 pages
-// dequantised by their per-page scale, pages past `length` skipped, and a
-// row with length == 0 gives exactly zero (acc / max(l, 1e-20) with l == 0).
+// (_paged_kernel).  Same contract: q (B, Hq, D), pages (P, BS, Hkv, D),
+// block_tables (B, NB) int32, lengths (B,) int32 clamped to NB * BS; online
+// softmax in f32, positions >= length masked and never loaded, optional
+// tanh softcap, int8 pages dequantised by their page's k_scale / v_scale,
+// and a row with length == 0 gives exactly zero.
 //
 // Bound on the H100: bytes.  Each resident K/V token is read once
-// (2 * Hkv * D * itemsize per token and layer); the arithmetic is ~1 FLOP
-// per byte, far below the ~295 FLOP/byte ridge.
+// (2 * Hkv * D * itemsize per token and layer, plus its page's table entry
+// and, for int8 pages, two f32 scales); the arithmetic is ~1 FLOP per byte.
+// At the paged path's shape (B = 8, NB = 64 pages of 16 positions, 4 KV
+// heads x 128, bf16) that is ~7.7 MB, ~2.3 us at 3.35 TB/s: one block per
+// (row, KV head), as the TPU kernel's grid had it, would be 32 blocks on
+// 132 SMs with the page loop serial inside each.
 //
-// Design: one block per (row, KV head) holds all G = Hq / Hkv query heads,
-// so every K/V page tile is read from device memory once per group.  The
-// page loop runs inside the block (on the TPU it was the sequential grid
-// axis); each page's K and V tiles are staged in shared memory as f32
-// (K rows padded by one float so the score loop is free of bank
-// conflicts), and (m, l, acc[G x D]) stay in shared memory in f32.  Only
-// B * Hkv blocks are in flight (32 at B = 8 on 132 SMs): that, not the
-// arithmetic, holds it back; splitting a row's pages over blocks is later
-// work.
-#include "common.cuh"
+// Design: the slot kernel's split-sequence passes (split_decode.cuh) with a
+// block-table map.  The split pass runs (B * Hkv, n_split) blocks of
+// 32-position chunks, each holding all G query heads of its KV head; every
+// position's K/V row is found through its own page's table entry
+// (PagedRows), so a chunk may span several pages and the page size need
+// not divide the chunk or be divided by it.  Rows are copied with 16-byte
+// cp.async in the pages' dtype (an int8 row of D = 128 is 8 copies); for
+// int8 pages the page scales of each position are staged in shared memory
+// as its copy is issued (PageScales): the K scale multiplies the score
+// before the softcap, the V scale the probability in the P.V weights only.
+// The merge pass combines the f32 partials (acc, m, l) that the wrapper's
+// scratch holds.  The wrapper plans n_split from shapes alone (never from
+// the lengths, which stay on the card).
+#include "split_decode.cuh"
+
+namespace sp = rt::split;
 
 namespace {
 
-constexpr int kThreads = 128;
-
 template <typename QT, typename KT>
-__global__ void __launch_bounds__(kThreads)
-paged_kernel(const QT* __restrict__ q, const KT* __restrict__ kp,
-             const KT* __restrict__ vp, const float* __restrict__ k_scale,
-             const float* __restrict__ v_scale, const int* __restrict__ tables,
-             const int* __restrict__ lengths, QT* __restrict__ out, int nb,
-             int bs, int hkv, int d, int g, float scale, float softcap) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int hq = hkv * g;
-  const int kstride = d + 1;
-  float* qs = smem;                   // g * d
-  float* ks = qs + g * d;             // bs * (d + 1)
-  float* vs = ks + bs * kstride;      // bs * d
-  float* sc = vs + bs * d;            // g * bs: scores, then probabilities
-  float* acc = sc + g * bs;           // g * d
-  float* m = acc + g * d;             // g
-  float* l = m + g;                   // g
-  float* alpha = l + g;               // g
-
-  const int length = lengths[b];
-  const size_t qbase = (static_cast<size_t>(b) * hq + static_cast<size_t>(h) * g) * d;
-  for (int i = tid; i < g * d; i += nt) {
-    qs[i] = rt::to_f32(q[qbase + i]);
-    acc[i] = 0.f;
-  }
-  for (int i = tid; i < g; i += nt) {
-    m[i] = rt::kNegInf;
-    l[i] = 0.f;
-  }
-  __syncthreads();
-
-  int npages = (length + bs - 1) / bs;
-  if (npages > nb) npages = nb;
-  for (int si = 0; si < npages; ++si) {
-    const int page = tables[static_cast<size_t>(b) * nb + si];
-    const float kscl = k_scale ? k_scale[page] : 1.f;
-    const float vscl = v_scale ? v_scale[page] : 1.f;
-    for (int i = tid; i < bs * d; i += nt) {
-      const int s = i / d, di = i - s * d;
-      const size_t off = ((static_cast<size_t>(page) * bs + s) * hkv + h) * d + di;
-      ks[s * kstride + di] = rt::to_f32(kp[off]) * kscl;
-      vs[i] = rt::to_f32(vp[off]) * vscl;
-    }
-    __syncthreads();
-    for (int i = tid; i < g * bs; i += nt) {
-      const int gi = i / bs, s = i - gi * bs;
-      const float* qr = qs + gi * d;
-      const float* kr = ks + s * kstride;
-      float dot = 0.f;
-      for (int di = 0; di < d; ++di) dot += qr[di] * kr[di];
-      float v = dot * scale;
-      if (softcap > 0.f) v = tanhf(v / softcap) * softcap;
-      sc[i] = (si * bs + s < length) ? v : rt::kNegInf;
-    }
-    __syncthreads();
-    for (int gi = tid; gi < g; gi += nt) {
-      float* row = sc + gi * bs;
-      const float m_prev = m[gi];
-      float m_new = m_prev;
-      for (int s = 0; s < bs; ++s) m_new = fmaxf(m_new, row[s]);
-      float sum = 0.f;
-      for (int s = 0; s < bs; ++s) {
-        const float p = expf(row[s] - m_new);
-        row[s] = p;
-        sum += p;
-      }
-      const float a = expf(m_prev - m_new);
-      alpha[gi] = a;
-      l[gi] = l[gi] * a + sum;
-      m[gi] = m_new;
-    }
-    __syncthreads();
-    for (int i = tid; i < g * d; i += nt) {
-      const int gi = i / d, di = i - gi * d;
-      const float* p = sc + gi * bs;
-      float o = 0.f;
-      for (int s = 0; s < bs; ++s) o += p[s] * vs[s * d + di];
-      acc[i] = acc[i] * alpha[gi] + o;
-    }
-    __syncthreads();
-  }
-  for (int i = tid; i < g * d; i += nt) {
-    const int gi = i / d;
-    out[qbase + i] = rt::from_f32<QT>(acc[i] / fmaxf(l[gi], 1e-20f));
-  }
-}
-
-template <typename QT, typename KT>
-void launch(const void* q, const void* kp, const void* vp, const float* ks,
-            const float* vs, const int* tables, const int* lengths, void* out,
-            int b, int nb, int bs, int hkv, int d, int g, float scale,
-            float softcap, size_t smem, cudaStream_t stream) {
-  paged_kernel<QT, KT><<<dim3(b, hkv), kThreads, smem, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(kp),
-      static_cast<const KT*>(vp), ks, vs, tables, lengths, static_cast<QT*>(out),
-      nb, bs, hkv, d, g, scale, softcap);
+int launch(const void* q, const void* k, const void* v, const float* ks, const float* vs,
+           const int* tables, const int* lengths, float* part, void* out, int b, int nb,
+           int bs, int hkv, int d, int g, int n_split, int chunks_per_split, float scale,
+           float softcap, cudaStream_t st) {
+  const sp::BlockTable bt{tables, nb, bs};
+  const sp::PagedRows rows{bt, hkv, d};
+  if constexpr (sizeof(KT) == 1)
+    return sp::launch<QT, KT>(q, k, v, lengths, part, out, rows, sp::PageScales{bt, ks, vs},
+                              b, nb * bs, hkv, d, g, n_split, chunks_per_split, scale,
+                              softcap, st);
+  else
+    return sp::launch<QT, KT>(q, k, v, lengths, part, out, rows, sp::NoScales{}, b, nb * bs,
+                              hkv, d, g, n_split, chunks_per_split, scale, softcap, st);
 }
 
 }  // namespace
 
-extern "C" int flash_decode_paged_smem_bytes(int bs, int d, int g) {
-  return static_cast<int>(sizeof(float)) *
-         (g * d + bs * (d + 1) + bs * d + g * bs + g * d + 3 * g);
+extern "C" int flash_decode_paged_smem_bytes(int d, int g, int itemsize) {
+  return sp::smem_bytes(d, g, itemsize, itemsize == 1);
 }
 
+extern "C" int flash_decode_paged_chunk() { return sp::kChunk; }
+
+// part: the wrapper's f32 scratch of B * Hq * n_split * (D + 2) floats;
+// k_scale / v_scale: (P,) f32 for int8 pages, else null.
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* k_pages, const void* v_pages, const void* k_scale,
-    const void* v_scale, const void* tables, const void* lengths, void* out,
-    int b, int nb, int bs, int hkv, int d, int g, float scale, float softcap,
-    int q_dtype, int kv_dtype, void* stream) {
-  const size_t smem = static_cast<size_t>(flash_decode_paged_smem_bytes(bs, d, g));
+    const void* v_scale, const void* tables, const void* lengths, void* part, void* out,
+    int b, int nb, int bs, int hkv, int d, int g, int n_split, int chunks_per_split,
+    float scale, float softcap, int q_dtype, int kv_dtype, void* stream) {
   const float* ks = static_cast<const float*>(k_scale);
   const float* vs = static_cast<const float*>(v_scale);
   const int* bt = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_LAUNCH(QT, KT)                                                      \
-  launch<QT, KT>(q, k_pages, v_pages, ks, vs, bt, ln, out, b, nb, bs, hkv, d, \
-                 g, scale, softcap, smem, st)
+#define RT_LAUNCH(QT, KT)                                                               \
+  return launch<QT, KT>(q, k_pages, v_pages, ks, vs, bt, ln, pt, out, b, nb, bs, hkv, d, \
+                        g, n_split, chunks_per_split, scale, softcap, st)
   // Pages are in the model's dtype or int8 (PagedKVCache), so q's dtype is
   // the pages' unless they are int8.
   if (q_dtype == rt::kF32 && kv_dtype == rt::kF32) RT_LAUNCH(float, float);
-  else if (q_dtype == rt::kF32 && kv_dtype == rt::kI8) RT_LAUNCH(float, int8_t);
-  else if (q_dtype == rt::kBF16 && kv_dtype == rt::kBF16) RT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-  else if (q_dtype == rt::kBF16 && kv_dtype == rt::kI8) RT_LAUNCH(__nv_bfloat16, int8_t);
-  else return static_cast<int>(cudaErrorInvalidValue);
+  if (q_dtype == rt::kF32 && kv_dtype == rt::kI8) RT_LAUNCH(float, int8_t);
+  if (q_dtype == rt::kBF16 && kv_dtype == rt::kBF16) RT_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+  if (q_dtype == rt::kBF16 && kv_dtype == rt::kI8) RT_LAUNCH(__nv_bfloat16, int8_t);
 #undef RT_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,18 +4,21 @@ contiguous slot cache.
 Replaces the TPU kernels ``src/repro/kernels/flash_decode.py::
 flash_decode_paged`` (``_paged_kernel``) and ``flash_decode`` (``_kernel``).
 The CUDA kernels are ``csrc/flash_decode_paged.cu`` and
-``csrc/flash_decode.cu``; each says what bounds it on the H100 (the bytes of
-the resident K/V) and how its design answers that.  Both hold all G query
-heads of a KV head in one block, so each K/V byte is read once per group.
-The paged kernel runs one block per (row, KV head), so only B * Hkv blocks
-are in flight; the slot kernel also splits each row's sequence over blocks
-(``split_plan``) and merges their partials in a second launch
-(``csrc/split_decode.cuh``).
+``csrc/flash_decode.cu``.  What bounds both on the H100 is the bytes of the
+resident K/V, and a decode batch has too few (row, KV head) pairs to put
+those bytes in flight on every SM, so both share one design
+(``csrc/split_decode.cuh``): each row's sequence is split over blocks of
+32-position chunks (``split_plan``, from shapes alone), each block holds
+all G query heads of its KV head so that each K/V byte is read once, and a
+second launch merges the blocks' f32 partials.  The two kernels differ only
+in how a position finds its K/V row (a contiguous slot, or its page through
+the block table) and in the int8 page scales.
 
 On a CPU tensor each wrapper computes its plain version
 (``ref.ref_flash_decode_paged`` / ``ref.ref_flash_decode``); on a CUDA
 tensor it launches the kernel or raises.  Each wrapper's ``launches``
-counts its kernel launches.
+counts its calls that launched (one per call, though a call is two
+launches: split and merge).
 """
 from __future__ import annotations
 
@@ -30,30 +33,36 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ref_flash_decode, ref_flash_decode_paged
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_MAX_SMEM = 48 * 1024     # default dynamic shared memory limit of one block
 _MAX_DYN_SMEM = 232_448   # dynamic shared memory one H100 block may use, opted in
-CHUNK = 32                # positions per chunk of the slot kernel's split pass
+CHUNK = 32                # positions per chunk of the split pass
 BLOCKS_PER_SM = 8         # split-pass blocks the plan aims for on each SM
+
+
+def _bind_common(lib: ctypes.CDLL, name: str) -> None:
+    """The smem and chunk entries every split-decode library exports; the
+    library must chunk as the plan does."""
+    i = ctypes.c_int
+    getattr(lib, f"{name}_smem_bytes").argtypes = [i, i, i]
+    getattr(lib, f"{name}_smem_bytes").restype = i
+    chunk = getattr(lib, f"{name}_chunk")
+    chunk.restype = i
+    if chunk() != CHUNK:
+        raise RuntimeError(f"{name}: csrc/split_decode.cuh chunks {chunk()} "
+                           f"positions, the plan {CHUNK}")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_decode_paged_launch.argtypes = [p] * 8 + [i] * 6 + [f, f, i, i, p]
+    lib.flash_decode_paged_launch.argtypes = [p] * 9 + [i] * 8 + [f, f, i, i, p]
     lib.flash_decode_paged_launch.restype = i
-    lib.flash_decode_paged_smem_bytes.argtypes = [i, i, i]
-    lib.flash_decode_paged_smem_bytes.restype = i
+    _bind_common(lib, "flash_decode_paged")
 
 
 def _bind_slot(lib: ctypes.CDLL) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_decode_launch.argtypes = [p] * 6 + [i] * 7 + [f, f, i, p]
     lib.flash_decode_launch.restype = i
-    lib.flash_decode_smem_bytes.argtypes = [i, i, i]
-    lib.flash_decode_smem_bytes.restype = i
-    lib.flash_decode_chunk.restype = i
-    if lib.flash_decode_chunk() != CHUNK:
-        raise RuntimeError(f"flash_decode: csrc/split_decode.cuh chunks "
-                           f"{lib.flash_decode_chunk()} positions, the plan {CHUNK}")
+    _bind_common(lib, "flash_decode")
 
 
 def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
@@ -74,8 +83,10 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        softcap: float = 0.0) -> torch.Tensor:
     """q: (B, Hq, D); k_pages, v_pages: (P, BS, Hkv, D) page pool in q's
     dtype, or int8 with per-page f32 scales (P,); block_tables: (B, NB) int32;
-    lengths: (B,) int32 valid tokens per row.  Returns (B, Hq, D) in q's
-    dtype; a row with length 0 is exactly zero."""
+    lengths: (B,) int32 valid tokens per row, clamped to NB * BS.  Returns
+    (B, Hq, D) in q's dtype; a row with length 0 is exactly zero.  One call
+    is two launches (split, merge), counted once; the plan reads shapes
+    only, never ``lengths``."""
     if q.device.type == "cpu":
         return ref_flash_decode_paged(q, k_pages, v_pages, block_tables, lengths,
                                       softcap=softcap, k_scale=k_scale,
@@ -101,21 +112,27 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
             _check(name, s, (torch.float32,), 1)
             if s.shape[0] != k_pages.shape[0]:
                 raise ValueError(f"{name} must have one scale per page")
+    item = k_pages.element_size()
+    plan = split_plan(b, nb * bs, hq, hkv, d, item, _num_sms(q.device))
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("flash_decode_paged: k_pages and v_pages must start on a "
+                         "16-byte boundary")
     out = torch.empty_like(q)
     if b == 0:
         return out
     lib = _build.load("flash_decode_paged", _bind)
     g = hq // hkv
-    if lib.flash_decode_paged_smem_bytes(bs, d, g) > _MAX_SMEM:
-        raise ValueError(f"flash_decode_paged: block size {bs}, head dim {d} and "
-                         f"group {g} need more than {_MAX_SMEM} B of shared memory")
+    if lib.flash_decode_paged_smem_bytes(d, g, item) > _MAX_DYN_SMEM:
+        raise ValueError(f"flash_decode_paged: head dim {d} and group {g} need more "
+                         f"than {_MAX_DYN_SMEM} B of shared memory")
+    part = torch.empty(plan.scratch_floats, dtype=torch.float32, device=q.device)
     rc = lib.flash_decode_paged_launch(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None,
-        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, nb, bs, hkv, d, g, d ** -0.5, float(softcap),
-        _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
+        block_tables.data_ptr(), lengths.data_ptr(), part.data_ptr(), out.data_ptr(),
+        b, nb, bs, hkv, d, g, plan.n_split, plan.chunks_per_split, d ** -0.5,
+        float(softcap), _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "flash_decode_paged")
     flash_decode_paged.launches += 1
@@ -127,7 +144,7 @@ flash_decode_paged.launches = 0
 
 @dataclass(frozen=True)
 class SplitPlan:
-    """How one slot flash-decode call is cut: ``n_split`` spans of
+    """How one flash-decode call (slot or paged) is cut: ``n_split`` spans of
     ``chunks_per_split`` chunks of ``CHUNK`` positions per (row, KV head),
     and the f32 scratch of B * Hq * n_split * (D + 2) floats (acc, m, l)."""
     n_split: int

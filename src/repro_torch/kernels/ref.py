@@ -51,9 +51,13 @@ def ref_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def ref_flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               lengths: torch.Tensor, softcap: float = 0.0,
-                              chunk: int = 64):
-    """The split pass of the slot kernel in plain PyTorch: per chunk of
+                              chunk: int = 64, k_scale: Optional[torch.Tensor] = None,
+                              v_scale: Optional[torch.Tensor] = None):
+    """The split pass of the decode kernels in plain PyTorch: per chunk of
     ``chunk`` positions, the f32 online-softmax partial of each query head.
+    Optional per-position scales (B, S) of a quantised store: the K scale
+    multiplies the position's score before the softcap, the V scale its
+    probability in the P.V weights only (``l`` sums the unscaled ones).
     Returns (m (B,Hq,N), l (B,Hq,N), acc (B,Hq,N,D), valid (B,N)) with N =
     ceil(S / chunk); a chunk is valid when it starts before the row's length,
     and only valid chunks carry meaning.  Not on any main path: it mirrors
@@ -69,6 +73,8 @@ def ref_flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = kf.reshape(b, n, chunk, hkv, d)
     vf = vf.reshape(b, n, chunk, hkv, d)
     scores = torch.einsum("bhgd,bnchd->bhgnc", q.float().reshape(b, hkv, g, d), kf)
+    if k_scale is not None:
+        scores = scores * _per_chunk(k_scale, n, chunk)
     scores = scores * (d ** -0.5)
     if softcap > 0:
         scores = torch.tanh(scores / softcap) * softcap
@@ -78,9 +84,17 @@ def ref_flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = scores.amax(-1)                                              # (B, Hkv, G, N)
     p = torch.exp(scores - m[..., None])                             # NaN in empty chunks
     l = p.sum(-1)
+    if v_scale is not None:
+        p = p * _per_chunk(v_scale, n, chunk)
     acc = torch.einsum("bhgnc,bnchd->bhgnd", p, vf)
     valid = mask[..., 0]
     return (m.reshape(b, hq, n), l.reshape(b, hq, n), acc.reshape(b, hq, n, d), valid)
+
+
+def _per_chunk(x: torch.Tensor, n: int, chunk: int) -> torch.Tensor:
+    """(B, S) per-position values -> (B, 1, 1, N, chunk), padded with 1."""
+    x = torch.nn.functional.pad(x.float(), (0, n * chunk - x.shape[1]), value=1.0)
+    return x.reshape(x.shape[0], 1, 1, n, chunk)
 
 
 def ref_merge_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
@@ -128,6 +142,33 @@ def ref_flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     k = k.reshape(b, nb * bs, hkv, d)
     v = v.reshape(b, nb * bs, hkv, d)
     return ref_flash_decode(q, k, v, lengths, softcap)
+
+
+def ref_flash_decode_paged_partials(q: torch.Tensor, k_pages: torch.Tensor,
+                                    v_pages: torch.Tensor, block_tables: torch.Tensor,
+                                    lengths: torch.Tensor, softcap: float = 0.0,
+                                    k_scale: Optional[torch.Tensor] = None,
+                                    v_scale: Optional[torch.Tensor] = None,
+                                    chunk: int = 32):
+    """The paged kernel's split pass in plain PyTorch: each row's pages
+    gathered through its block table into one (B, NB * BS) store of the
+    raw page values, each position carrying its own page's scales, then
+    ``ref_flash_decode_partials`` over ``chunk``-position chunks (which may
+    span pages).  Lengths are clamped to NB * BS.  Returns the partials as
+    that function does; not on any main path."""
+    b = q.shape[0]
+    _, bs, hkv, d = k_pages.shape
+    nb = block_tables.shape[1]
+    bt = block_tables.long()
+    k = k_pages[bt].reshape(b, nb * bs, hkv, d)
+    v = v_pages[bt].reshape(b, nb * bs, hkv, d)
+
+    def per_position(scale):
+        return None if scale is None else scale[bt].repeat_interleave(bs, dim=1)
+    lengths = lengths.clamp(0, nb * bs)
+    return ref_flash_decode_partials(q, k, v, lengths, softcap, chunk,
+                                     k_scale=per_position(k_scale),
+                                     v_scale=per_position(v_scale))
 
 
 def ref_topk_router(logits: torch.Tensor, k: int

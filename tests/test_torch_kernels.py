@@ -302,6 +302,96 @@ def test_flash_decode_split_plan():
             split_plan(8, 1024, 32, 4, d, item)
 
 
+# --- the paged kernel's split-and-merge arithmetic -------------------------------------
+
+PAGED_PAIRS = [("float32", False), ("bfloat16", False), ("float32", True), ("bfloat16", True)]
+
+
+def _paged_split(q, kp, vp, bt, lens, softcap=0.0, **scales):
+    """The paged mirror's partials, merged: the kernel's arithmetic."""
+    parts = ref.ref_flash_decode_paged_partials(q, kp, vp, bt, lens, softcap, **scales)
+    return ref.ref_merge_partials(*parts).to(q.dtype)
+
+
+@pytest.mark.parametrize("bs", [8, 16, 32, 48])
+@pytest.mark.parametrize("dtype,int8", PAGED_PAIRS)
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_flash_decode_paged_split_mirror_matches_pallas(bs, dtype, int8, softcap):
+    """The plain mirror of the paged split pass (32-position chunks through
+    the block table, per-page int8 scales on the score and the P.V weights)
+    merged, against the plain version, the Pallas kernel and its oracle.
+    Pages of 8, 16, 32 and 48 positions: smaller than, equal to, larger
+    than and not a divisor of a chunk.  Rows: length 0, 1, one past a page,
+    one past a chunk, the whole table, and a free row (length 1, all-zero
+    table row) that reads the garbage page 0."""
+    nb = -(-(2 * CHUNK + 8) // bs)
+    q, kp, vp, bt = _paged_case(bs + nb, 6, 8, 2, 32, bs, nb, dtype)
+    bt[5] = 0
+    lens = np.array([0, 1, bs + 1, CHUNK + 1, nb * bs, 1], np.int32)
+    q = q * 10 if softcap else q
+    scales = {}
+    if int8:
+        (kp, ks), (vp, vs) = _int8_pages(kp), _int8_pages(vp)
+        scales = dict(k_scale=ks, v_scale=vs)
+    got, pallas, oracle = _both_paged(q, kp, vp, bt, lens, dtype, softcap, **scales)
+    qt = _pair(q, dtype)[1]
+    kt, vt = ((torch.from_numpy(x) if int8 else _pair(x, dtype)[1]) for x in (kp, vp))
+    st = {k: torch.from_numpy(v) for k, v in scales.items()}
+    split = _paged_split(qt, kt, vt, torch.from_numpy(bt), torch.from_numpy(lens), softcap,
+                         **st)
+    assert split.dtype == TORCH_DT[dtype] and split.shape == q.shape
+    split = _np(split)
+    for want in (got, pallas, oracle):
+        np.testing.assert_allclose(split, want, **TOL[dtype])
+    assert (split[0] == 0).all()             # length 0 attends to nothing: exact zeros
+
+
+def test_flash_decode_paged_split_clamps_lengths_to_the_table():
+    """A length past NB * BS attends to the whole table, as the plain
+    version does."""
+    q, kp, vp, bt = (torch.from_numpy(a) for a in _paged_case(5, 2, 4, 2, 16, 16, 3))
+    lens = torch.tensor([48, 1000], dtype=torch.int32)
+    want = ref.ref_flash_decode_paged(q, kp, vp, bt, torch.tensor([48, 48], dtype=torch.int32))
+    torch.testing.assert_close(_paged_split(q, kp, vp, bt, lens), want, **TOL["float32"])
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_fault_checks_fall_outside_the_gate(int8):
+    """chip_smoke.py's wrong answers for the paged kernel (length mask to
+    the page or chunk end, merge faults, contiguous pages within a chunk,
+    and for int8 one scale per chunk or the V scale inside l) each fall
+    outside its f32 gate at a small shape, and the mirror falls inside."""
+    import chip_smoke
+    q, kp, vp, bt = _paged_case(9, 4, 8, 2, 32, 16, 8)
+    args = [torch.from_numpy(a) for a in (q * 4, kp, vp, bt)]
+    kw = dict(k_scale=None, v_scale=None, softcap=0.0)
+    if int8:
+        (kq, ks), (vq, vs) = _int8_pages(kp), _int8_pages(vp)
+        args[1:3] = torch.from_numpy(kq), torch.from_numpy(vq)
+        kw.update(k_scale=torch.from_numpy(ks), v_scale=torch.from_numpy(vs))
+    args.append(torch.tensor([0, 17, 75, 128], dtype=torch.int32))
+    rtol, atol = chip_smoke.FD_TOL["float32"]
+    want = ref.ref_flash_decode_paged(*args, **kw)
+    assert chip_smoke.max_excess(_paged_split(*args, **kw), want, rtol, atol)[1] <= 0
+    wrong = chip_smoke._paged_faults(torch, ref, args, kw, CHUNK)
+    assert len(wrong) == (7 if int8 else 5)
+    for fault, bad in wrong.items():
+        assert chip_smoke.max_excess(bad, want, rtol, atol)[1] > 0, fault
+
+
+def test_flash_decode_paged_split_plan():
+    """The paged path's shape (B = 8, NB * BS = 64 * 16 = 1024, 4 KV heads
+    x 128) gets 1024 split-pass blocks of one chunk each, from shapes alone,
+    whatever the pages' itemsize (bf16, f32 or int8)."""
+    for item in (2, 4, 1):
+        plan = split_plan(8, 64 * 16, 32, 4, 128, item)
+        assert (plan.n_split, plan.chunks_per_split, plan.span) == (32, 1, CHUNK)
+        assert 8 * 4 * plan.n_split == 1024
+    assert split_plan(8, 22 * 48, 32, 4, 128, 2).n_split == 33       # 48-position pages
+    with pytest.raises(ValueError, match="head dim"):
+        split_plan(8, 1024, 32, 4, 8, 1)                             # 8 B rows of int8
+
+
 def _int8_pages(pages: np.ndarray):
     """Per-page int8 quantisation with the reference's quantize_int8."""
     import jax
