@@ -17,6 +17,12 @@
    (where one PyTorch call computes the same function) that call, with
    CUDA events: median of 20 launches, L2 flushed before each.  Each
    kernel line gives the achieved TB/s of the bytes its bound counts.
+   The router (kernels 2 and 5, one launch over a thread-block cluster)
+   is checked at T = 1, 8, 512, 1024 and 5000 and at two forced launch
+   plans (several CTAs, several rounds), with identity and replica tables
+   and random, tied and skewed logits; four wrong counts are shown to fall
+   outside its gate, the profiler shows one launch a call, and one call
+   is captured in a CUDA graph and replayed.
 3. Checks the kernel path against the plain path end to end at full width
    in f32 (2 layers): one paged decode step, and one slot-layout decode
    step under a replicated placement whose weights ``apply_placement``
@@ -32,7 +38,8 @@
    relocate experts into a replicated slot map that the router kernel
    receives.  During the slot run the slot flash-decode kernel and the
    identity router kernel are held against their plain versions on the
-   run's own cache and router logits.
+   run's own cache and router logits.  The traced runs must show one
+   router kernel name per instantiation, launched once per wrapper call.
 5. Prints the card's name and power limit, one JSON line listing the
    kernels, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -97,10 +104,10 @@ class Timer:
             out.append(s.elapsed_time(e))
         return statistics.median(out)
 
-    def device_us(self, fn, iters: int = 20) -> str:
-        """Device time per call of each kernel ``fn`` launches, from
-        torch.profiler over ``iters`` calls with the L2 flushed before each
-        (the flush's own kernel left out): where a call's time goes."""
+    def device_rows(self, fn, iters: int = 20) -> list:
+        """(kernel name, device us per call, launches) of each kernel ``fn``
+        launches, from torch.profiler over ``iters`` calls with the L2
+        flushed before each (the flush's own kernel left out)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
@@ -117,8 +124,31 @@ class Timer:
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0.0)
             if ev.device_type == DeviceType.CUDA and us > 0 and "FillFunctor" not in ev.key:
-                rows.append(f"{ev.key.rsplit('(', 1)[0][-48:]} {us / iters:.2f} us")
+                rows.append((ev.key, us / iters, ev.count))
+        return rows
+
+    def device_us(self, fn, iters: int = 20) -> str:
+        """Device time per call of each kernel ``fn`` launches: where a
+        call's time goes."""
+        rows = [f"{key.rsplit('(', 1)[0][-48:]} {us:.2f} us"
+                for key, us, _ in self.device_rows(fn, iters)]
         return "; ".join(rows) or "no device time recorded"
+
+    def host_us(self, fn, iters: int = 200) -> float:
+        """Host microseconds a call of ``fn`` takes to enqueue its work: the
+        median of ``iters`` calls on the host clock, with no synchronize
+        between them (the median, because the host's other work lands on a
+        few calls)."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(iters):
+            t = time.perf_counter()
+            fn()
+            out.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        return statistics.median(out) * 1e6
 
 
 def max_excess(got, want, rtol: float, atol: float) -> tuple:
@@ -143,9 +173,8 @@ def check_close(name: str, got, want, rtol: float, atol: float | None = None) ->
 # ----------------------------------------------------------------------------- kernels
 
 def kernel_phase(torch, timer: Timer, cfg) -> dict:
-    from repro_torch.kernels import moe_gemm, ref, topk_router_replicated
+    from repro_torch.kernels import moe_gemm, ref
     from repro_torch.kernels.moe_gemm import launch_plan
-    from repro_torch.models.moe import ExpertPlacement
 
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
@@ -157,51 +186,11 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
 
     results.update(_paged_flash_decode_checks(torch, timer, cfg, gen))
 
-    # --- router: T = 8 (decode) and 512 (prefill bucket) ------------------------
-    e, k = cfg.num_experts, cfg.moe_top_k
-    ident = ExpertPlacement.identity(e, device=dev)
-    inv = torch.cat([torch.arange(e, device=dev),
-                     torch.randint(0, e, (8,), generator=gen, device=dev)])
-    inv = inv[torch.randperm(e + 8, generator=gen, device=dev)]
-    rep = ExpertPlacement.from_slot_map(inv, e, device=dev)
-    rt = {}
-    for t in (8, 512):
-        for tables_name, plc in (("identity", ident), ("R=8", rep)):
-            for tied in (False, True):
-                logits = randn(t, e, std=2.0)
-                if tied:
-                    logits = (torch.round(logits) / 2).clamp(-1, 1)
-                args = (logits, k, plc.replica_slots, plc.replica_count, plc.num_slots)
-                got = topk_router_replicated(*args)
-                want = ref.ref_topk_router_replicated(*args)
-                torch.cuda.synchronize()
-                err = check_close(f"topk_router[T={t},{tables_name},tied={tied}]",
-                                  got[0], want[0], 1e-5)
-                for name, g_, w_ in zip(("ids", "slots", "pos"), got[1:], want[1:]):
-                    if not torch.equal(g_, w_):
-                        raise AssertionError(f"topk_router[T={t},{tables_name},tied={tied}]: "
-                                             f"{name} differ in {int((g_ != w_).sum())} places")
-                ms = timer.ms(lambda: topk_router_replicated(*args))
-                plain = timer.ms(lambda: ref.ref_topk_router_replicated(*args))
-                nbytes = (t * e * 4 + plc.replica_slots.numel() * 4 + e * 4 + 4 * t * k * 4)
-                flops = 5 * t * e
-                rt[(t, tables_name, tied)] = dict(err=err, ms=ms, plain=plain,
-                                                  bound=_bound(nbytes, flops, "float32"))
-                log(f"kernel topk_router_replicated T={t} tables={tables_name} tied={tied}: "
-                    f"max_abs_err={err:.3e} (tol 1e-5) ints_exact=True ms={ms:.4f} "
-                    f"plain_ms={plain:.4f} library_ms=none "
-                    f"bound_ms={rt[(t, tables_name, tied)]['bound'][0]:.6f} (bytes) "
-                    f"{_tb_s(nbytes, ms)}")
-    main = rt[(8, "identity", False)]
-    results["topk_router_replicated"] = dict(
-        source="src/repro_torch/kernels/csrc/topk_router.cu",
-        replaces="src/repro/kernels/topk_router.py:155",
-        max_abs_err=max(v["err"] for v in rt.values()), ms=main["ms"],
-        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
-        library_ms=None)
+    router = _router_checks(torch, timer, cfg, gen)
+    results["topk_router_replicated"] = router["topk_router_replicated"]
 
     # --- grouped GEMM: C = 8 (decode, T = 8) and 48 (512-token bucket) ----------
-    dm, f = cfg.d_model, cfg.moe_d_ff
+    e, dm, f = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
     mg = {}
     for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
         w_up = randn(e, dm, f, dtype=dtype, std=dm ** -0.5)
@@ -259,7 +248,7 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
         plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
         library_ms=main["lib"])
     results.update(_slot_flash_decode_checks(torch, timer, cfg, gen))
-    results.update(_topk_router_checks(torch, timer, cfg, gen))
+    results["topk_router"] = router["topk_router"]
     return results
 
 
@@ -489,41 +478,210 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
         library_ms=main["lib"])}
 
 
-def _topk_router_checks(torch, timer: Timer, cfg, gen) -> dict:
-    """Kernel 5, the identity-placement router, at T = 8 and 512 x E = 128."""
-    from repro_torch.kernels import ref, topk_router
+# (T, route_plan overrides) of the router phase: default plans at decode
+# (one CTA), at 512 and 1024 (n = 4 and 8 CTAs, one round) and at 5000
+# tokens (two rounds), and two forced plans with many rounds and odd sizes
+ROUTER_CASES = ((1, None), (8, None), (512, None), (1024, None), (5000, None),
+                (1024, dict(ctas=2, warps=4, per_warp=8)),
+                (600, dict(ctas=3, warps=5, per_warp=3)))
+
+
+def _router_hot(e: int) -> tuple:
+    """The skewed logits' two hot experts."""
+    return 1, e - 2
+
+
+def _router_logits(torch, gen, t: int, e: int, kind: str):
+    """Router logits: "random" N(0, 4); "tied", rounded to multiples of 0.5
+    in [-1, 1] (many equal probabilities); "skewed", one hot expert a
+    token: even tokens put the first hot expert first and the second second,
+    odd tokens the other way round (see ``_router_hot``), so one slot's
+    selections span every warp, CTA and round, and the second hot expert
+    alternates between selections 0 and 1."""
+    x = torch.randn((t, e), generator=gen, device=DEVICE) * 2.0
+    if kind == "tied":
+        x = (torch.round(x) / 2).clamp(-1, 1)
+    elif kind == "skewed":
+        even = torch.arange(t, device=DEVICE) % 2 == 0
+        first, second = _router_hot(e)
+        x[:, first] = torch.where(even, 20.0, 16.0)
+        x[:, second] = torch.where(even, 16.0, 20.0)
+    return x
+
+
+def _router_placement(torch, e: int, gen):
+    """Up to R = 8 replica slots (S = 136 at E = 128), shuffled: the first
+    hot expert in three slots, up to six experts other than the hot ones in
+    two, the second hot expert in one."""
+    from repro_torch.models.moe import ExpertPlacement
+    hot = _router_hot(e)
+    others = [x for x in range(10, e, max(1, (e - 10) // 6)) if x not in hot][:6]
+    inv = torch.cat([torch.arange(e), torch.tensor([hot[0]] * 2 + others)])
+    inv = inv[torch.randperm(len(inv), generator=gen, device=DEVICE).cpu()]
+    return ExpertPlacement.from_slot_map(inv.to(DEVICE), e, device=DEVICE)
+
+
+def _router_faults(torch, ref, want, plc, plan, num_slots: int, k: int) -> dict:
+    """Four wrong counts a router kernel could give, each as (slots, pos)
+    from the plain versions on the same inputs: the carry across rounds
+    dropped; ranks within the CTA only (no lower-CTA sum); positions in
+    selection-major order; and, with replica tables ``plc``, the replica
+    index from j instead of the global selection index t * k + j.
+    ``want``: the plain (ids, slots, pos)."""
+    ids, slots, pos = want
+    terms = ref.ref_router_plan_terms(slots, plan, num_slots)
+    wrong = {"carry dropped across rounds": (slots, pos - terms["carry"]),
+             "no lower-CTA sum": (slots, pos - terms["lower_ctas"]),
+             "selection-major order": (slots, ref.slot_positions(slots.t(), num_slots).t())}
+    if plc is not None:
+        j = torch.arange(k, device=ids.device)[None, :]
+        by_j = plc.replica_slots.long()[ids.long(), j % plc.replica_count.long()[ids.long()]
+                                        .clamp(min=1)].int()
+        wrong["replica index from j"] = (by_j, ref.slot_positions(by_j, num_slots))
+    return wrong
+
+
+def _router_checks(torch, timer: Timer, cfg, gen) -> dict:
+    """Kernels 2 and 5 (one launch a call, one cluster) against their plain
+    versions at every ROUTER_CASES plan: kernel 2 with identity tables (the
+    paged path) and with R = 8 replica tables, kernel 5 (no tables); random,
+    tied and skewed logits.  Gates within 1e-5, integers exact, the plain
+    mirror of the cluster count equal to the plain positions, and on skewed
+    logits each of ``_router_faults`` outside the gate wherever it can
+    differ (carry: rounds > 1; lower CTAs: n > 1; order: T > 1; replica
+    index: replica tables, T > 1).  The profiler shows one kernel launch a
+    call at every case.  At T = 8, 512 and 1024: timed ms, device us, host
+    us a call without a synchronize, beside ``launch_floor_ms`` (one
+    single-element ``zero_()`` under the same Timer).  Then one call
+    captured in a CUDA graph and replayed on new logits."""
+    from repro_torch.kernels import ref, topk_router, topk_router_replicated
+    from repro_torch.kernels.topk_router import route_plan
+    from repro_torch.models.moe import ExpertPlacement
 
     e, k = cfg.num_experts, cfg.moe_top_k
-    rt = {}
+    one = torch.zeros(1, device=DEVICE)
+    floor = timer.ms(lambda: one.zero_())
+    log(f"router launch_floor_ms={floor:.4f} (one single-element zero_())")
+    placements = {"identity tables": ExpertPlacement.identity(e, device=DEVICE),
+                  "R=8": _router_placement(torch, e, gen), "kernel 5": None}
+    rows, errs = {}, {name: [] for name in placements}
+    shown = {name: 0 for name in ("carry dropped across rounds", "no lower-CTA sum",
+                                  "selection-major order", "replica index from j")}
+    for t, over in ROUTER_CASES:
+        for tables, plc in placements.items():
+            s = e if plc is None else plc.num_slots
+            plan = route_plan(t, e, k, s, **(over or {}))
+            kw = dict(plan=plan) if over else {}
+            for kind in ("random", "tied", "skewed"):
+                name = f"router[T={t},{tables},{kind},plan={tuple(plan[:4])}]"
+                logits = _router_logits(torch, gen, t, e, kind)
+                if plc is None:
+                    def call():
+                        return topk_router(logits, k, **kw)
+
+                    def plain():
+                        return ref.ref_topk_router(logits, k)
+                    (gates, ids, pos), (wg, wi, wp) = call(), plain()
+                    got, want = (ids, ids, pos), (wi, wi, wp)
+                else:
+                    args = (logits, k, plc.replica_slots, plc.replica_count, s)
+
+                    def call():
+                        return topk_router_replicated(*args, **kw)
+
+                    def plain():
+                        return ref.ref_topk_router_replicated(*args)
+                    (gates, *got), (wg, *want) = call(), plain()
+                torch.cuda.synchronize()
+                err = check_close(name, gates, wg, 1e-5)
+                for what, g_, w_ in zip(("ids", "slots", "pos"), got, want):
+                    if not torch.equal(g_, w_):
+                        raise AssertionError(f"{name}: {what} differ in "
+                                             f"{int((g_ != w_).sum())} places")
+                if not torch.equal(ref.ref_router_plan_positions(want[1], plan, s), want[2]):
+                    raise AssertionError(f"{name}: the plain mirror of the cluster count "
+                                         f"disagrees with the plain positions")
+                line = f"kernel {name}: max_abs_err={err:.3e} (tol 1e-5) ints_exact=True"
+                if kind == "skewed":
+                    faults = _router_faults(torch, ref, want, plc, plan, s, k)
+                    can = {"carry dropped across rounds": plan.rounds > 1,
+                           "no lower-CTA sum": plan.ctas > 1,
+                           "selection-major order": t > 1,
+                           "replica index from j": s > e and t > 1}
+                    for fault, (fs, fp) in faults.items():
+                        outside = not (torch.equal(fs, want[1]) and torch.equal(fp, want[2]))
+                        if can[fault] and not outside:
+                            raise AssertionError(f"{name}: the gate cannot tell {fault!r} "
+                                                 f"from the plain version")
+                        shown[fault] += outside
+                    line += f" faults_outside_gate={sum(can.values())}"
+                if kind == "random":
+                    # one kernel launch a call, whatever T and plan
+                    drows = timer.device_rows(call, iters=5)
+                    if len(drows) != 1 or drows[0][2] != 5 or "rt::router::" not in drows[0][0]:
+                        raise AssertionError(f"{name}: not one router launch a call: {drows}")
+                    line += " launches_per_call=1"
+                if kind == "random" and over is None and t in (8, 512, 1024):
+                    row = dict(err=err, ms=timer.ms(call), host_us=timer.host_us(call),
+                               plain=timer.ms(plain))
+                    nbytes = t * e * 4 + (3 if plc is None else 4) * t * k * 4
+                    if plc is not None:
+                        nbytes += (plc.replica_slots.numel() + e) * 4
+                    row["bound"] = _bound(nbytes, 5 * t * e, "float32")
+                    rows[(t, tables)] = row
+                    log(f"device time router T={t} {tables} plan={tuple(plan[:4])}: kernel "
+                        f"[{timer.device_us(call)}] host_us_per_call={row['host_us']:.2f} "
+                        f"launch_floor_ms={floor:.4f}")
+                    line += (f" ms={row['ms']:.4f} ({row['ms'] / floor:.2f}x launch floor) "
+                             f"plain_ms={row['plain']:.4f} library_ms=none "
+                             f"bound_ms={row['bound'][0]:.6f} ({row['bound'][1]}) "
+                             f"{_tb_s(nbytes, row['ms'])}")
+                errs[tables].append(err)
+                log(line)
+    if not all(shown.values()):
+        raise AssertionError(f"router: a fault was never shown outside the gate: {shown}")
+    log(f"router faults outside the gate (skewed cases): {shown}")
+    _router_graph_check(torch, gen, placements["R=8"], e, k)
+
+    def entry(tables, replaces, err):
+        main = rows[(8, tables)]
+        return dict(source="src/repro_torch/kernels/csrc/topk_router.cu", replaces=replaces,
+                    max_abs_err=err, ms=main["ms"], plain_ms=main["plain"],
+                    bound_ms=main["bound"][0], bound_by=main["bound"][1], library_ms=None)
+    return {"topk_router_replicated": entry("identity tables",
+                                            "src/repro/kernels/topk_router.py:155",
+                                            max(errs["identity tables"] + errs["R=8"])),
+            "topk_router": entry("kernel 5", "src/repro/kernels/topk_router.py:145",
+                                 max(errs["kernel 5"]))}
+
+
+def _router_graph_check(torch, gen, plc, e: int, k: int) -> None:
+    """One replicated router call captured in a CUDA graph at T = 8 and at
+    T = 512 (four CTAs), replayed on logits written into the captured input
+    afterwards: equal, bit for bit, to the eager call on those logits."""
+    from repro_torch.kernels import topk_router_replicated
     for t in (8, 512):
-        for tied in (False, True):
-            logits = torch.randn((t, e), generator=gen, device=DEVICE) * 2.0
-            if tied:
-                logits = (torch.round(logits) / 2).clamp(-1, 1)
-            name = f"topk_router[T={t},tied={tied}]"
-            got = topk_router(logits, k)
-            want = ref.ref_topk_router(logits, k)
-            torch.cuda.synchronize()
-            err = check_close(name, got[0], want[0], 1e-5)
-            for what, g_, w_ in zip(("ids", "pos"), got[1:], want[1:]):
-                if not torch.equal(g_, w_):
-                    raise AssertionError(f"{name}: {what} differ in "
-                                         f"{int((g_ != w_).sum())} places")
-            ms = timer.ms(lambda: topk_router(logits, k))
-            plain = timer.ms(lambda: ref.ref_topk_router(logits, k))
-            nbytes = t * e * 4 + 3 * t * k * 4
-            rt[(t, tied)] = dict(err=err, ms=ms, plain=plain,
-                                 bound=_bound(nbytes, 5 * t * e, "float32"))
-            log(f"kernel topk_router T={t} tied={tied}: max_abs_err={err:.3e} (tol 1e-5) "
-                f"ints_exact=True ms={ms:.4f} plain_ms={plain:.4f} library_ms=none "
-                f"bound_ms={rt[(t, tied)]['bound'][0]:.6f} (bytes) {_tb_s(nbytes, ms)}")
-    main = rt[(8, False)]
-    return {"topk_router": dict(
-        source="src/repro_torch/kernels/csrc/topk_router.cu",
-        replaces="src/repro/kernels/topk_router.py:145",
-        max_abs_err=max(v["err"] for v in rt.values()), ms=main["ms"],
-        plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
-        library_ms=None)}
+        x = _router_logits(torch, gen, t, e, "random")
+        args = (x, k, plc.replica_slots, plc.replica_count, plc.num_slots)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            topk_router_replicated(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = topk_router_replicated(*args)
+        x.copy_(_router_logits(torch, gen, t, e, "skewed"))
+        graph.replay()
+        eager = topk_router_replicated(*args)
+        torch.cuda.synchronize()
+        for what, g_, w_ in zip(("gates", "ids", "slots", "pos"), captured, eager):
+            if not torch.equal(g_, w_):
+                raise AssertionError(f"router CUDA graph T={t}: replayed {what} differ "
+                                     f"from the eager call")
+        log(f"router CUDA graph T={t}: captured once, replayed on new logits, equal to "
+            f"the eager call")
+        del graph
 
 
 def _merge_faults(torch, ref, parts, dtype) -> dict:
@@ -750,7 +908,7 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
         f"{eng.max_slots} rows) scheduler_and_rest_s="
         f"{wall - secs['start'] - secs['decode']:.4f}")
     if prof is not None:
-        _report_trace(prof, wall, label)
+        _check_router_trace(_report_trace(prof, wall, label), launches, label)
     if len(done) != len(reqs):
         raise AssertionError(f"engine[{label}]: only {len(done)}/{len(reqs)} finished")
     if not seen["finite"]:
@@ -906,7 +1064,7 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
     return run
 
 
-def _report_trace(prof, wall_s: float, label: str) -> None:
+def _report_trace(prof, wall_s: float, label: str) -> list:
     """Device busy share over the traced run and the kernels that took the
     most device time (summed over launches), with the decode-attention
     split and merge passes listed wherever they rank.  Only the device's own events
@@ -924,14 +1082,32 @@ def _report_trace(prof, wall_s: float, label: str) -> None:
     busy_ms = sum(r[0] for r in rows) / 1e3
     if busy_ms == 0:
         log(f"trace[{label}]: the profiler recorded no device time: busy share not measured")
-        return
+        return rows
     log(f"trace[{label}]: wall_ms={1e3 * wall_s:.3f} device_busy_ms={busy_ms:.3f} "
         f"busy_share={busy_ms / (1e3 * wall_s):.4f} idle_share={1 - busy_ms / (1e3 * wall_s):.4f}")
     ranked = sorted(rows, reverse=True)
     for i, (us, count, key) in enumerate(ranked):
-        # the ten largest rows, and the decode-attention passes wherever they rank
-        if i < 10 or "rt::split::" in key:
+        # the ten largest rows, and the decode-attention and router kernels
+        # wherever they rank
+        if i < 10 or "rt::split::" in key or "rt::router::" in key:
             log(f"trace[{label}]:   {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
+    return rows
+
+
+def _check_router_trace(rows, launches: dict, label: str) -> None:
+    """The traced run's router kernels: one name per instantiation that ran
+    (replicated for kernel 2, identity for kernel 5), each launched once per
+    wrapper call."""
+    router = {key: count for _, count, key in rows if "rt::router::" in key}
+    flags = (("route_kernel<true", "topk_router_replicated"),
+             ("route_kernel<false", "topk_router"))
+    want = {flag: launches[name] for flag, name in flags if launches[name]}
+    got = {flag: [c for key, c in router.items() if flag in key] for flag, _ in flags}
+    if len(router) != len(want) or any(got[flag] != [n] for flag, n in want.items()):
+        raise AssertionError(f"trace[{label}]: router kernels {router} != one per wrapper "
+                             f"call {want}")
+    log(f"trace[{label}]: router kernels {len(router)}, launches equal to wrapper calls "
+        f"{want}")
 
 
 # ----------------------------------------------------------------------------- main

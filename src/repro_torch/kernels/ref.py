@@ -171,21 +171,27 @@ def ref_flash_decode_paged_partials(q: torch.Tensor, k_pages: torch.Tensor,
                                      v_scale=per_position(v_scale))
 
 
+def slot_positions(slots: torch.Tensor, num_slots: int) -> torch.Tensor:
+    """GShard capacity positions: each selection's rank among the earlier
+    selections of its slot, in row-major order of ``slots`` (token-major,
+    then selection, for (T, k)), by a one-hot cumsum.  Returns int32."""
+    onehot = (slots.reshape(-1, 1).long()
+              == torch.arange(num_slots, device=slots.device)[None, :]).int()
+    pos = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(-1)
+    return pos.reshape(slots.shape).int()
+
+
 def ref_topk_router(logits: torch.Tensor, k: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Fused router: softmax, top-k (lowest index on ties), renormalised
     gates, and capacity positions per expert in token-major, then selection,
     order.  logits: (T, E).  Returns (gates (T,k) f32, ids (T,k), pos (T,k)),
     the integers as int32."""
-    t, e = logits.shape
+    e = logits.shape[1]
     probs = torch.softmax(logits.float(), dim=-1)
     gates, ids = top_k(probs, k)
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
-    onehot = (ids.reshape(-1, 1)
-              == torch.arange(e, device=logits.device)[None, :]).int()
-    pos_flat = (torch.cumsum(onehot, dim=0) - 1) * onehot
-    pos = pos_flat.sum(-1).reshape(t, k)
-    return gates, ids.int(), pos.int()
+    return gates, ids.int(), slot_positions(ids, e)
 
 
 def ref_topk_router_replicated(logits: torch.Tensor, k: int,
@@ -206,8 +212,42 @@ def ref_topk_router_replicated(logits: torch.Tensor, k: int,
            + torch.arange(k, device=logits.device)[None, :])
     ridx = sel % torch.clamp(replica_count.long()[ids], min=1)
     slots = replica_slots.long()[ids, ridx]
-    onehot = (slots.reshape(-1, 1)
-              == torch.arange(num_slots, device=logits.device)[None, :]).int()
-    pos_flat = (torch.cumsum(onehot, dim=0) - 1) * onehot
-    pos = pos_flat.sum(-1).reshape(t, k)
-    return gates, ids.int(), slots.int(), pos.int()
+    return gates, ids.int(), slots.int(), slot_positions(slots, num_slots)
+
+
+def ref_router_plan_terms(slots: torch.Tensor, plan, num_slots: int) -> dict:
+    """The router kernel's capacity count in plain PyTorch, as its launch
+    ``plan`` (``topk_router.route_plan``: ctas, warps, per_warp, rounds)
+    lays the tokens out: each selection's rank among its warp's selections
+    of the same slot (token-major), the selections of that slot in the
+    lower warps of its CTA, in the lower CTAs of its round, and in all
+    earlier rounds (the carry).  slots: (T, k) physical slots.  Returns the
+    four (T, k) int32 terms, keyed "warp_rank", "lower_warps", "lower_ctas"
+    and "carry"; the position is their sum.  Not on any main path: it
+    mirrors ``csrc/topk_router.cu`` for the tests and chip_smoke.py."""
+    t, k = slots.shape
+    n, w, m, rounds = plan.ctas, plan.warps, plan.per_warp, plan.rounds
+    cap = rounds * n * w * m
+    if cap < t:
+        raise ValueError(f"plan covers {cap} tokens, not T={t}")
+    oh = torch.zeros((cap * k, num_slots), dtype=torch.int32, device=slots.device)
+    oh[:t * k] = (slots.reshape(-1, 1).long()
+                  == torch.arange(num_slots, device=slots.device)[None, :]).int()
+    oh = oh.reshape(rounds, n, w, m * k, num_slots)
+    warp_cnt = oh.sum(3)                                     # (R, n, W, S)
+    cta_cnt = warp_cnt.sum(2)                                # (R, n, S)
+    round_cnt = cta_cnt.sum(1)                               # (R, S)
+    terms = {
+        "warp_rank": torch.cumsum(oh, 3) - oh,
+        "lower_warps": (torch.cumsum(warp_cnt, 2) - warp_cnt)[:, :, :, None],
+        "lower_ctas": (torch.cumsum(cta_cnt, 1) - cta_cnt)[:, :, None, None],
+        "carry": (torch.cumsum(round_cnt, 0) - round_cnt)[:, None, None, None],
+    }
+    return {name: (x * oh).sum(-1).reshape(-1)[:t * k].reshape(t, k).int()
+            for name, x in terms.items()}
+
+
+def ref_router_plan_positions(slots: torch.Tensor, plan, num_slots: int) -> torch.Tensor:
+    """The capacity positions (T, k) int32 as the router kernel counts them
+    under ``plan``: the sum of ``ref_router_plan_terms``."""
+    return sum(ref_router_plan_terms(slots, plan, num_slots).values())

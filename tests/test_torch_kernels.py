@@ -34,6 +34,7 @@ from repro_torch.kernels import (KERNELS, _build, decode_attention, flash_decode
 from repro_torch.kernels.flash_decode import CHUNK, split_plan
 from repro_torch.kernels.moe_gemm import check_bf16_shapes
 from repro_torch.kernels.moe_gemm import launch_plan as moe_gemm_plan
+from repro_torch.kernels.topk_router import route_plan, smem_bytes
 from repro_torch.models.moe import ExpertPlacement
 from repro_torch.training.compression import quantize_int8
 
@@ -494,6 +495,135 @@ def test_router_positions_count_across_tokens():
     _, ids, _, pos = _router_both(logits, 1, block_t=64)
     assert (ids.numpy() == 0).all()
     np.testing.assert_array_equal(pos.numpy().ravel(), np.arange(t))
+
+
+# --- the router kernel's launch plan and its cluster count ---------------------------------
+
+def _skewed_logits(rng, t: int, e: int, hot=(1, None)) -> np.ndarray:
+    """One hot expert a token: even tokens put ``hot[0]`` first and
+    ``hot[1]`` second, odd tokens the other way round, so one slot's
+    selections span every warp, CTA and round of a plan."""
+    hot = (hot[0], e - 2 if hot[1] is None else hot[1])
+    x = (rng.normal(size=(t, e)) * 2).astype(np.float32)
+    even = np.arange(t) % 2 == 0
+    x[:, hot[0]] = np.where(even, 20.0, 16.0)
+    x[:, hot[1]] = np.where(even, 16.0, 20.0)
+    return x
+
+
+def _hot_slot_map(rng, e: int, r: int) -> np.ndarray:
+    """Every expert once, expert 1 (the first hot one) twice more and
+    r - 2 random others once more, shuffled: S = E + r."""
+    extra = [1, 1, *rng.choice(np.arange(2, e - 2), r - 2, replace=False)]
+    return rng.permutation(np.concatenate([np.arange(e), extra])).astype(np.int32)
+
+
+@pytest.mark.parametrize("t", [1, 7, 8, 9, 16, 100, 512, 513, 1024, 5000])
+def test_route_plan_lays_every_token_out_once_in_token_major_order(t):
+    """Every token in exactly one (round, CTA, warp, place in warp), the
+    lexicographic order of those equal to token order, one round up to 1024
+    tokens (decode and every prefill bucket), at most 8 CTAs and 227 KB of
+    shared memory, for E in {8, 128, 160}, k in {1, 2, 6, 8}, S up to E + 8."""
+    for e in (8, 128, 160):
+        for k in (1, 2, 6, 8):
+            for s in (e, e + 4, e + 8):
+                plan = route_plan(t, e, k, s)
+                n, w, m, rounds, smem = plan
+                assert 1 <= n <= 8 and 1 <= w <= 32 and m >= 1
+                assert smem == smem_bytes(w, m, k, e, s) <= 232_448
+                assert rounds * n * w * m >= t > (rounds - 1) * n * w * m
+                if t <= 1024:
+                    assert rounds == 1
+                i = np.arange(t)
+                where = np.stack([i // (n * w * m), i // (w * m) % n, i // m % w, i % m], 1)
+                assert len({tuple(x) for x in where}) == t
+                assert (where < [rounds, n, w, m]).all()
+                flat = ((where[:, 0] * n + where[:, 1]) * w + where[:, 2]) * m + where[:, 3]
+                np.testing.assert_array_equal(flat, i)     # token-major, contiguous
+    assert route_plan(8, 128, 8, 132)[:4] == (1, 8, 1, 1)  # decode: one CTA, a token a warp
+    assert route_plan(5000, 128, 8, 136).rounds == 2
+
+
+def test_route_plan_overrides_and_limits():
+    plan = route_plan(600, 128, 8, 136, ctas=3, warps=5, per_warp=3)
+    assert plan[:4] == (3, 5, 3, 14)
+    assert route_plan(1024, 128, 8, 136, ctas=1).rounds == 2
+    with pytest.raises(ValueError):
+        route_plan(8, 128, 17, 136)                        # k above the kernel's 16
+    with pytest.raises(ValueError):
+        route_plan(8, 300, 8, 300)                         # E above 8 probabilities a lane
+    with pytest.raises(ValueError):
+        route_plan(8, 128, 8, 136, ctas=9)                 # beyond the portable cluster
+    with pytest.raises(ValueError):
+        route_plan(4096, 128, 16, 4000, warps=32, per_warp=16)   # shared memory
+
+
+_PLANS = (None, dict(ctas=2, warps=3, per_warp=4), dict(ctas=3, warps=2, per_warp=2),
+          dict(ctas=8, warps=1, per_warp=1))
+
+
+@pytest.mark.parametrize("t,e,k,r", [(200, 8, 2, 4), (90, 8, 8, 3), (64, 128, 1, 8),
+                                     (96, 128, 8, 8), (150, 160, 6, 8)])
+def test_router_plan_positions_match_pallas(t, e, k, r):
+    """The plain mirror of the kernel's count (per warp, per CTA, across the
+    cluster, carried across rounds) equals the one-hot cumsum, the plain
+    router and the Pallas kernel in interpret mode, with a replicated map
+    and skewed logits, under the default plan and plans with several CTAs
+    and rounds."""
+    rng = np.random.default_rng(t * e + k)
+    inv = _hot_slot_map(rng, e, r)
+    got = _router_both(_skewed_logits(rng, t, e), k, inv)
+    slots, pos = got[2], got[3]
+    np.testing.assert_array_equal(ref.slot_positions(slots, len(inv)).numpy(), pos.numpy())
+    rounds = set()
+    for over in _PLANS:
+        plan = route_plan(t, e, k, len(inv), **(over or {}))
+        rounds.add(plan.rounds)
+        terms = ref.ref_router_plan_terms(slots, plan, len(inv))
+        np.testing.assert_array_equal(ref.ref_router_plan_positions(slots, plan, len(inv)),
+                                      pos.numpy())
+        if plan.ctas > 1:
+            assert terms["lower_ctas"].max() > 0
+    assert max(rounds) > 1
+
+
+@pytest.mark.parametrize("tables", ["identity", "replicated"])
+def test_router_count_faults_fall_outside_the_gate(tables):
+    """chip_smoke.py's four wrong counts (carry dropped across rounds, no
+    lower-CTA sum, selection-major order, replica index from j) each differ
+    from the plain router on skewed logits under a plan with several CTAs
+    and rounds; the replica fault needs replica tables to differ."""
+    import chip_smoke
+    rng = np.random.default_rng(11)
+    t, e, k = 120, 16, 4
+    inv = _hot_slot_map(rng, e, 6) if tables == "replicated" else np.arange(e, dtype=np.int32)
+    plc = ExpertPlacement.from_slot_map(inv, e, device="cpu")
+    logits = torch.from_numpy(_skewed_logits(rng, t, e))
+    _, ids, slots, pos = topk_router_replicated(logits, k, plc.replica_slots,
+                                                plc.replica_count, len(inv))
+    plan = route_plan(t, e, k, len(inv), ctas=3, warps=2, per_warp=4)
+    assert plan.rounds > 1
+    wrong = chip_smoke._router_faults(torch, ref, (ids, slots, pos), plc, plan, len(inv), k)
+    assert len(wrong) == 4
+    for fault, (fs, fp) in wrong.items():
+        differs = not (torch.equal(fs, slots) and torch.equal(fp, pos))
+        assert differs == (fault != "replica index from j" or tables == "replicated"), fault
+
+
+def test_router_trace_check_wants_one_kernel_per_call():
+    """chip_smoke.py's traced-run check: one router kernel name per
+    instantiation that ran, launched once per wrapper call; two names (a
+    second launch a call) or a count off the calls fail."""
+    import chip_smoke
+    launches = {"topk_router_replicated": 116, "topk_router": 0}
+    one = [(900.0, 116, "void rt::router::route_kernel<true, 4>(float const*)")]
+    chip_smoke._check_router_trace(one, launches, "test")
+    for rows in (one + [(100.0, 116, "void rt::router::position_kernel(int const*)")],
+                 [(900.0, 232, one[0][2])], []):
+        with pytest.raises(AssertionError):
+            chip_smoke._check_router_trace(rows, launches, "test")
+    both = one + [(50.0, 3, "void rt::router::route_kernel<false, 4>(float const*)")]
+    chip_smoke._check_router_trace(both, dict(launches, topk_router=3), "test")
 
 
 # --- identity-placement router -----------------------------------------------------------
