@@ -40,8 +40,25 @@
    identity router kernel are held against their plain versions on the
    run's own cache and router logits.  The traced runs must show one
    router kernel name per instantiation, launched once per wrapper call.
-5. Prints the card's name and power limit, one JSON line listing the
-   kernels, and as the last line ``{"ok": true, "device": {...}}``.
+5. Serves a ShareGPT-style multi-user trace (24 turns of 6 users, 8
+   requests a second) through the port's ``Cluster`` of such engines on the
+   logical clock (``run_drill``, dt 0.05), on the same weights: C1, two
+   paged engines behind "combined" dispatch under the "kill_migrate"
+   fault drill; C2, one prefill and one decode engine handing KV off (12
+   requests); C3, two slot-layout engines sharing one "gimbal+rep" expert
+   level seeded with the synthetic prior (16 requests), run twice from
+   fresh state.  Every request must finish or be shed with finite logits,
+   each engine's kernel launches must equal its prefill and decode calls'
+   path, C1 must fail over, re-route, restore, hit shared prefixes and
+   drain its pages, C2 must hand every request off once and finish it on
+   the decode engine, C3 must rebalance into 132-slot tables that every
+   engine applies, and C3's two runs must give identical greedy tokens,
+   observed expert ids and rebalance events.  Each run prints its wall
+   seconds, cluster steps, wall ms per step, generated tokens per wall
+   second and per-engine request counts.
+6. Prints the card's name and power limit, one JSON line listing the
+   kernels (with the cluster runs' launches beside the main path's), and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are missing.  Imports nothing of JAX or of the reference
@@ -49,6 +66,7 @@ package.
 """
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -1064,6 +1082,305 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
     return run
 
 
+# ----------------------------------------------------------------------------- cluster
+
+CLUSTER_KW = dict(max_slots=8, max_seq=1024, prefill_budget=512, dispatch_mode="fused",
+                  use_kernels=True)
+PAGED_KW = dict(CLUSTER_KW, kv_layout="paged", kv_block_size=16, expert_level=None)
+
+
+def _cluster_trace(cfg) -> list:
+    """The cluster runs' traffic: 24 ShareGPT-style turns of 6 users at 8
+    requests a second (a user's turn extends their transcript, so sessions
+    share real prefixes), prompts whole, generated lengths folded to at
+    most 32 tokens."""
+    from repro_torch.workloads import sharegpt_trace
+
+    trace = sharegpt_trace(n_requests=24, n_users=6, rps=8.0, seed=SEED,
+                           vocab_size=cfg.vocab_size, utterance_mean=60, answer_mean=24,
+                           max_context=768)
+    for r in trace:
+        r.max_new_tokens = min(r.max_new_tokens, 32)
+    return trace
+
+
+def _drive_cluster(torch, cl, reqs, drill, label: str) -> dict:
+    """Drive ``cl`` through ``run_drill(drill, dt=0.05)`` on the logical
+    clock, with every kernel's count set to 0 just before and read just
+    after.  Per engine: its prefill and decode calls, the kernel launches
+    made inside them and each request's greedy tokens; every logit is
+    checked finite.  Checks that every request finished or was shed and
+    that each engine's launches equal its path's."""
+    from collections import Counter
+
+    from repro_torch import kernels as K
+    from repro_torch.distributed.drill import run_drill
+    from repro_torch.models import model as M
+
+    def counts():
+        return {fn.__name__: fn.launches for fn in K.KERNELS}
+
+    per, tokens, finite = {}, {}, [True]
+
+    def wrap(eng):
+        st = per.setdefault(eng.engine_id, {"prefill": 0, "decode": 0,
+                                            "launches": dict.fromkeys(counts(), 0)})
+        b = eng.backend
+        orig_start, orig_decode = b.start, b.decode
+
+        def charge(kind, fn, *a):
+            before = counts()
+            out = fn(*a)
+            st[kind] += 1
+            for k, v in counts().items():
+                st["launches"][k] += v - before[k]
+            return out
+
+        def start(r, now):
+            out = charge("prefill", orig_start, r, now)
+            tokens.setdefault(r.req_id, []).append(int(b.slot_last_token[out[0]]))
+            return out
+
+        def decode(active, now):
+            out = charge("decode", orig_decode, active, now)
+            for slot, r in active:
+                tokens.setdefault(r.req_id, []).append(int(b.slot_last_token[slot]))
+            return out
+
+        b.start, b.decode = start, decode
+
+    for eng in cl.engines.values():
+        wrap(eng)
+    originals = {n: getattr(M, n) for n in ("prefill", "decode_step", "decode_step_paged")}
+
+    def checked(fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            finite[0] &= bool(out[0].isfinite().all())
+            return out
+        return call
+
+    steps = [0]
+    orig_step = cl.step
+
+    def step(now):
+        steps[0] += 1
+        return orig_step(now)
+
+    cl.step = step
+    for n, fn in originals.items():
+        setattr(M, n, checked(fn))
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = run_drill(cl, reqs, drill, dt=0.05)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        for n, fn in originals.items():
+            setattr(M, n, fn)
+
+    shed = cl.shed_requests()
+    gen = sum(r.generated for r in cl.finished)
+    done_by = Counter(r.engine_id for r in cl.finished)
+    sent_to = Counter(e for _, e in cl.dispatch.assignment_log())
+    log(f"cluster[{label}]: requests finished={len(cl.finished)} shed={len(shed)} "
+        f"of {len(reqs)} wall_s={wall:.3f} cluster_steps={steps[0]} "
+        f"wall_ms_per_cluster_step={1e3 * wall / max(steps[0], 1):.3f} "
+        f"generated_tokens={gen} generated_tokens_per_wall_s={gen / wall:.2f} "
+        f"finished_per_engine={dict(sorted(done_by.items()))} "
+        f"assignments_per_engine={dict(sorted(sent_to.items()))} launches={launches}")
+    for eid, st in sorted(per.items()):
+        log(f"cluster[{label}] engine {eid}: prefills={st['prefill']} "
+            f"decode_steps={st['decode']} launches={st['launches']}")
+    rep = cl.report()
+    log(f"cluster[{label}] report, logical-clock seconds (dt 0.05 a step): "
+        f"mean_ttft={rep.mean_ttft:.3f} p99_ttft={rep.p99_ttft:.3f} "
+        f"mean_tpot={rep.mean_tpot:.4f} prefix={cl.prefix_stats()}")
+    if not finite[0]:
+        raise AssertionError(f"cluster[{label}]: non-finite logits")
+    if len(cl.finished) + len(shed) != len(reqs):
+        raise AssertionError(f"cluster[{label}]: {len(cl.finished)} finished + "
+                             f"{len(shed)} shed != {len(reqs)}")
+    for eid, st in per.items():
+        eng = cl.engines[eid]
+        L, n = eng.cfg.num_layers, st["prefill"] + st["decode"]
+        paged = eng.backend.kv_layout == "paged"
+        want = {"flash_decode_paged": st["decode"] * L if paged else 0,
+                "topk_router_replicated": n * L, "moe_gemm": 3 * n * L,
+                "flash_decode": 0, "topk_router": 0}
+        if st["launches"] != want:
+            raise AssertionError(f"cluster[{label}] engine {eid}: launches "
+                                 f"{st['launches']} != path {want}")
+    total = {k: sum(st["launches"][k] for st in per.values()) for k in launches}
+    if total != launches:
+        raise AssertionError(f"cluster[{label}]: launches outside the engines' calls "
+                             f"{launches} != {total}")
+    return dict(launches=launches, runner=runner, tokens=tokens, wall=wall,
+                steps=steps[0])
+
+
+def cluster_kill_migrate(torch, cfg, params, trace) -> dict:
+    """C1: two unified paged engines (no expert level) behind "combined"
+    scored dispatch, under the "kill_migrate" drill: engine 1 is failed
+    over with its KV migrated at a quarter of the arrival window and
+    restored at 60 %."""
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.engine import Engine
+
+    engines = [Engine(i, cfg, params, variant="combined", device=DEVICE, **PAGED_KW)
+               for i in range(2)]
+    cl = Cluster(engines, variant="combined")
+    run = _drive_cluster(torch, cl, copy.deepcopy(trace), "kill_migrate", "C1 kill_migrate")
+    life = cl.dispatch.lifecycle_log()
+    hits = cl.prefix_stats()["hit_blocks"]
+    used = {eid: e.kv.blocks_used for eid, e in cl.engines.items()}
+    log(f"cluster[C1]: lifecycle={life} fired={[(a, e) for _, a, e in run['runner'].fired]} "
+        f"rerouted={cl.rerouted} prefix_hit_blocks={hits} "
+        f"shared_pages={[e.kv.shared_hits for e in engines]} blocks_used_after={used}")
+    if ("fail:migrated", 1) not in life or ("restore", 1) not in life:
+        raise AssertionError(f"cluster[C1]: lifecycle {life} lacks the drill's fail and restore")
+    if cl.rerouted <= 0:
+        raise AssertionError("cluster[C1]: the kill re-routed nothing")
+    if hits <= 0 or any(used.values()):
+        raise AssertionError(f"cluster[C1]: prefix hit blocks {hits}, pages left {used}")
+    return run
+
+
+def cluster_disaggregated(torch, cfg, params, trace) -> dict:
+    """C2: one prefill and one decode paged engine under "combined": every
+    request prefills on engine 0 and is handed off, KV and all, to engine
+    1, which decodes it to the end."""
+    from collections import Counter
+
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.engine import Engine
+
+    engines = [Engine(i, cfg, params, variant="combined", role=role, device=DEVICE,
+                      **PAGED_KW)
+               for i, role in enumerate(("prefill", "decode"))]
+    cl = Cluster(engines, variant="combined")
+    reqs = copy.deepcopy(trace[:12])
+    run = _drive_cluster(torch, cl, reqs, "none", "C2 1P+1D")
+    xfer = cl.kv_transfer_log()
+    kinds = [k for k, _, _ in engines[0].core.event_log()]
+    log(f"cluster[C2]: kv_transfers={len(xfer)} handoffs={kinds.count('handoff')} "
+        f"finished_on={sorted({r.engine_id for r in cl.finished})}")
+    if sorted(xfer) != sorted((r.req_id, 0, 1) for r in reqs):
+        raise AssertionError(f"cluster[C2]: kv_transfer_log {xfer} is not one (req, 0, 1) "
+                             "per request")
+    if any(r.engine_id != 1 for r in cl.finished) or len(cl.finished) != len(reqs):
+        raise AssertionError("cluster[C2]: a request did not finish on the decode engine")
+    if kinds.count("handoff") != len(reqs) or "finish" in kinds:
+        raise AssertionError(f"cluster[C2]: prefill engine events {dict(Counter(kinds))}")
+    return run
+
+
+def cluster_shared_level(torch, cfg, params, trace, label: str) -> dict:
+    """C3: two unified slot-layout engines sharing one "gimbal+rep" expert
+    level over 4 expert devices (R = 4, S = 132; tau 8 aggregate engine
+    steps) seeded with the synthetic prior (seed 0, hot boost 8), "gimbal"
+    dispatch.  Records the expert ids the level observed and its rebalance
+    events; checks that it rebalanced, that the router kernel received
+    132-slot tables, and that both engines apply the level's slot map."""
+    import numpy as np
+    from repro_torch.core.gimbal import make_cluster_expert_level
+    from repro_torch.core.types import GimbalConfig
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.serving.cluster import Cluster
+    from repro_torch.serving.engine import Engine
+
+    gcfg = GimbalConfig(tau=8)
+    level = make_cluster_expert_level("gimbal+rep", cfg, 4, gcfg, prior_seed=0,
+                                      hot_boost=8.0)
+    engines = [Engine(i, cfg, params, variant="gimbal", gimbal_cfg=gcfg, expert_level=level,
+                      kv_layout="slot", device=DEVICE, **CLUSTER_KW) for i in range(2)]
+    cl = Cluster(engines, variant="gimbal", gimbal_cfg=gcfg, expert_level=level)
+    observed = []
+    orig_observe = level.observe
+
+    def observe(expert_ids):
+        observed.append(np.array(expert_ids, copy=True))
+        return orig_observe(expert_ids)
+
+    level.observe = observe
+    slots_seen = {}
+    orig_route = moe_lib.route_replicated
+
+    def route(logits, k, replica_slots, replica_count, num_slots):
+        slots_seen[num_slots] = slots_seen.get(num_slots, 0) + 1
+        return orig_route(logits, k, replica_slots, replica_count, num_slots)
+
+    moe_lib.route_replicated = route
+    try:
+        run = _drive_cluster(torch, cl, copy.deepcopy(trace[:16]), "none", label)
+    finally:
+        moe_lib.route_replicated = orig_route
+    for e in engines:
+        e.backend._sync_placement()
+    slot_map = np.asarray(level.slot_map)
+    log(f"cluster[{label}]: rebalances={len(level.events)} slots={len(slot_map)} "
+        f"max_copies={int(level.placement().replica_count.max())} "
+        f"relocations={[e.relocations for e in engines]} router_calls_by_slots="
+        f"{dict(sorted(slots_seen.items()))} observed_batches={len(observed)}")
+    if not level.events:
+        raise AssertionError(f"cluster[{label}]: no rebalance event")
+    if len(slot_map) != cfg.num_experts + 4 or slots_seen.get(cfg.num_experts + 4, 0) < 1:
+        raise AssertionError(f"cluster[{label}]: the router never received "
+                             f"{cfg.num_experts + 4}-slot tables")
+    for e in engines:
+        if not np.array_equal(e.backend._applied_map, slot_map):
+            raise AssertionError(f"cluster[{label}]: engine {e.engine_id} applies another "
+                                 "slot map than the level's")
+    run.update(observed=observed, events=[vars(ev) for ev in level.events])
+    return run
+
+
+def _same_runs(a: dict, b: dict) -> None:
+    """C3's reproducibility gate: the greedy tokens of every request, the
+    expert ids the level observed and its rebalance events are identical."""
+    import numpy as np
+    if a["tokens"] != b["tokens"]:
+        bad = sorted(r for r in set(a["tokens"]) | set(b["tokens"])
+                     if a["tokens"].get(r) != b["tokens"].get(r))
+        raise AssertionError(f"cluster[C3]: greedy tokens differ between runs for "
+                             f"requests {bad}")
+    if len(a["observed"]) != len(b["observed"]) or not all(
+            np.array_equal(x, y) for x, y in zip(a["observed"], b["observed"])):
+        first = next((i for i, (x, y) in enumerate(zip(a["observed"], b["observed"]))
+                      if not np.array_equal(x, y)), None)
+        raise AssertionError(f"cluster[C3]: observed expert ids differ between runs "
+                             f"(batches {len(a['observed'])} / {len(b['observed'])}, "
+                             f"first differing {first})")
+    if a["events"] != b["events"]:
+        raise AssertionError(f"cluster[C3]: rebalance events differ: {a['events']} vs "
+                             f"{b['events']}")
+    log(f"cluster[C3]: two runs identical: {len(a['tokens'])} requests' greedy tokens "
+        f"({sum(len(t) for t in a['tokens'].values())} tokens), "
+        f"{len(a['observed'])} observed expert-id batches, "
+        f"{len(a['events'])} rebalance events")
+
+
+def cluster_phase(torch, cfg, params) -> dict:
+    """C1-C3 over one ShareGPT-style trace; C3 runs twice from fresh state
+    and must repeat itself exactly.  Returns each run's kernel launches."""
+    trace = _cluster_trace(cfg)
+    log(f"cluster trace: {len(trace)} requests, users {len({r.user_id for r in trace})}, "
+        f"prompt tokens {sum(r.prompt_len for r in trace)} "
+        f"(max {max(r.prompt_len for r in trace)}), new tokens "
+        f"{sum(r.max_new_tokens for r in trace)}, arrivals over "
+        f"{trace[-1].arrival_time:.3f} logical s")
+    c1 = cluster_kill_migrate(torch, cfg, params, trace)
+    c2 = cluster_disaggregated(torch, cfg, params, trace)
+    c3 = cluster_shared_level(torch, cfg, params, trace, "C3 shared level")
+    c3b = cluster_shared_level(torch, cfg, params, trace, "C3 shared level, repeat")
+    _same_runs(c3, c3b)
+    return {"C1": c1["launches"], "C2": c2["launches"], "C3": c3["launches"],
+            "C3 repeat": c3b["launches"]}
+
+
 def _report_trace(prof, wall_s: float, label: str) -> list:
     """Device busy share over the traced run and the kernels that took the
     most device time (summed over launches), with the decode-attention
@@ -1155,6 +1472,7 @@ def main() -> int:
     slot_run = gimbal_run(torch, cfg, params, n_req=16, max_new=32)
     gimbal_run(torch, cfg, params, n_req=8, max_new=16, label="slot+gimbal+rep traced",
                trace=True)
+    cluster = cluster_phase(torch, cfg, params)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1171,7 +1489,8 @@ def main() -> int:
                      "replaces": k["replaces"], "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+                     "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                     "cluster_launches": {run: n[name] for run, n in cluster.items()}})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ Consumes the per-layer expert ids that moe_apply(return_stats=True) emits
 The reference accumulates with a jitted scatter-add; here it is
 ``np.bincount`` on the host, where the ids already are (the backend copies
 them off the device with the step's tokens), with the same integer counts.
-``synthetic_stats`` draws its prior from ``jax.random`` keys and joins with
-the simulator plane (ROADMAP.md, Queue 1).
+``synthetic_stats`` takes an integer seed where the reference takes a
+``jax.random`` key: the reference seeds numpy with the sum of the key's data,
+which is ``[0, s]`` for ``key(s)``, so ``s % 2**31`` draws the same prior.
 """
 from __future__ import annotations
 
@@ -89,3 +90,34 @@ class AffinityTracker:
         hotspot severity signal motivating EDR."""
         a = self.A + 1e-9
         return float(np.mean(a.max(1) / a.mean(1)))
+
+
+def synthetic_stats(seed: int, num_layers: int, num_experts: int, tokens: int = 100_000,
+                    hot_frac: float = 0.1, hot_boost: float = 8.0,
+                    n_affine_pairs: int = 12, affine_strength: float = 6.0,
+                    top_k: int = 2):
+    """Generate Fig.3/Fig.4-shaped statistics without model weights: a few hot
+    experts per layer and sparse strong inter-layer pairs (paper §III-D notes
+    strong dependencies are 'sparse and localized').
+
+    ``seed`` (0 <= seed < 2**32) plays the reference's ``key(seed)``.
+    Returns (A (L,E) float, W (E,E) float, pairs list)."""
+    seed = int(seed)
+    if not 0 <= seed < 2**32:
+        raise ValueError(f"seed {seed} outside [0, 2**32)")
+    rng = np.random.default_rng(seed % (2**31))
+    n_hot = max(1, int(num_experts * hot_frac))
+    A = np.zeros((num_layers, num_experts))
+    base = rng.dirichlet(np.ones(num_experts) * 4.0, size=num_layers)
+    for i in range(num_layers):
+        hot = rng.choice(num_experts, n_hot, replace=False)
+        base[i, hot] *= hot_boost
+        base[i] /= base[i].sum()
+        A[i] = base[i] * tokens * top_k
+    W = np.outer(A.mean(0), A.mean(0)) / (tokens * top_k)  # weak background coupling
+    pairs = []
+    for _ in range(n_affine_pairs):
+        j, k = rng.choice(num_experts, 2, replace=False)
+        W[j, k] += affine_strength * W.mean() * num_experts
+        pairs.append((int(j), int(k)))
+    return A, W, pairs

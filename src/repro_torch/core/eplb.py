@@ -13,10 +13,9 @@ their token streams across the copies.
 
 ``ClusterExpertLevel`` is the cluster-wide instance shared by every engine
 core (§V-A.1): real routed stats from every ``TorchBackend`` aggregate into
-the same AffinityTracker.  Its synthetic prior (``prior_seed``, the
-simulator's operating mode) and ``SyntheticExpertLevel`` draw from
-``jax.random`` keys and join with the simulator plane (ROADMAP.md, Queue 1).
-The shared level ticks once per engine-step of EVERY sharing core, so
+the same AffinityTracker.  With ``prior_seed`` it starts from synthetic
+Fig.3/4-shaped statistics (the simulator's operating mode, and a warm-start
+prior for serving that observed traffic decays into).  The shared level ticks once per engine-step of EVERY sharing core, so
 ``tau`` counts aggregate core steps across the cluster.
 
 ``NullExpertLevel`` stands in for non-MoE architectures.
@@ -28,7 +27,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.affinity import AffinityTracker
+from repro_torch.core.affinity import AffinityTracker, synthetic_stats
 from repro_torch.core.placement import (eplb_placement, eplb_placement_rep,
                                         gimbal_placement, gimbal_placement_rep,
                                         perm_to_slot_map, placement_coupling,
@@ -37,9 +36,6 @@ from repro_torch.core.placement import (eplb_placement, eplb_placement_rep,
 from repro_torch.core.types import GimbalConfig
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import ExpertPlacement
-
-_SIM_SLICE = ("the synthetic prior draws from jax.random and joins with the "
-              "simulator plane (ROADMAP.md, Queue 1 item 8)")
 
 
 @dataclasses.dataclass
@@ -194,26 +190,45 @@ class ExpertRebalancer:
 
 class ClusterExpertLevel(ExpertRebalancer):
     """THE cluster-wide expert level, shared by every engine core (§V-A.1:
-    experts are EP-sharded across all engines' devices).  ``prior_seed`` (the
-    reference's synthetic warm-start prior) is not ported yet and raises."""
+    experts are EP-sharded across all engines' devices).
+
+    ``prior_seed`` is not None seeds the AffinityTracker with synthetic
+    Fig.3/4-shaped (A, W) statistics — the simulator's operating mode, where
+    no real traffic routes, and a warm-start prior for serving that observed
+    traffic exponentially decays into (tracker decay < 1).  ``hot_boost``
+    scales how hot the prior's hot experts run (the hot-expert-skew knob the
+    campaign's hotspot cells turn)."""
 
     def __init__(self, model_cfg: ModelConfig, num_devices: int,
                  policy: str = "gimbal", anchor: int = 0,
                  cfg: Optional[GimbalConfig] = None, top_e: int = 16,
                  stats_decay: float = 0.8, redundancy: int = 0,
-                 prior_seed: Optional[int] = None):
-        if prior_seed is not None:
-            raise NotImplementedError(f"ClusterExpertLevel(prior_seed=...): {_SIM_SLICE}")
+                 prior_seed: Optional[int] = None, hot_boost: float = 8.0):
         super().__init__(model_cfg, num_devices, policy=policy, anchor=anchor,
                          cfg=cfg, top_e=top_e, stats_decay=stats_decay,
                          redundancy=redundancy)
+        if prior_seed is not None:
+            A, W, _ = synthetic_stats(
+                prior_seed,
+                max(model_cfg.num_moe_layers(), 1), model_cfg.num_experts,
+                top_k=model_cfg.moe_top_k, hot_boost=hot_boost)
+            self.tracker.A[...] = A
+            self.tracker.W[...] = W
+            self.factor_trail.clear()
+            self._update_factors()
 
 
 class SyntheticExpertLevel(ClusterExpertLevel):
-    """The simulator's level seeded with the synthetic prior: not ported yet."""
+    """Back-compat alias: ClusterExpertLevel seeded with the synthetic prior
+    (the simulator's historical entry point)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"SyntheticExpertLevel: {_SIM_SLICE}")
+    def __init__(self, model_cfg: ModelConfig, num_devices: int,
+                 policy: str = "gimbal", anchor: int = 0,
+                 cfg: Optional[GimbalConfig] = None, top_e: int = 16,
+                 seed: int = 0, redundancy: int = 0, hot_boost: float = 8.0):
+        super().__init__(model_cfg, num_devices, policy=policy, anchor=anchor,
+                         cfg=cfg, top_e=top_e, redundancy=redundancy,
+                         prior_seed=seed, hot_boost=hot_boost)
 
 
 class NullExpertLevel:

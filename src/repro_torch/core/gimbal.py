@@ -1,6 +1,6 @@
 """Port of ``repro.core.gimbal``: the ablation variants of the paper's
-evaluation (§V-A.7), the request-level queue and the expert level each one
-uses.
+evaluation (§V-A.7), and the router, request-level queue and expert level
+each one uses.
 
   * "vllm"       — RR router + FCFS queue + static experts   (baseline)
   * "dplb"       — Alg.1 router only
@@ -12,15 +12,18 @@ uses.
   * "rr" | "prefix" | "kv" | "sticky" | "combined" — engine-level dispatch
     variants (SJF + EDR held fixed, only the dispatch rule varies)
 
-``make_router`` waits for the cluster plane and ``make_sim_expert_level``
-for the simulator plane (ROADMAP.md, Queue 1).
+``make_sim_expert_level`` waits for the simulator plane (ROADMAP.md,
+Queue 1).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
+from repro_torch.core.dispatch import DISPATCH_WEIGHTS, ScoredRouter
 from repro_torch.core.eplb import (ClusterExpertLevel, ExpertRebalancer,
                                    NullExpertLevel)
+from repro_torch.core.prefix_directory import PrefixDirectory
+from repro_torch.core.router import GimbalRouter, RoundRobinRouter
 from repro_torch.core.sjf import SJFQueue
 from repro_torch.core.types import GimbalConfig
 from repro_torch.models.config import ModelConfig
@@ -40,8 +43,22 @@ def variant_flags(variant: str) -> Dict[str, bool]:
         "edr": variant in ("edr", "eplb", "gimbal", "gimbal+rep")
                or variant in DISPATCH_VARIANTS,
         "rep": variant == "gimbal+rep",
+        # scored engine-level dispatch ("rr" keeps SJF+EDR but routes blind,
+        # making it the clean baseline for the dispatch axis)
         "dispatch": variant in DISPATCH_VARIANTS and variant != "rr",
     }
+
+
+def make_router(variant: str, engine_ids: Sequence[int],
+                cfg: Optional[GimbalConfig] = None,
+                directory: Optional[PrefixDirectory] = None):
+    f = variant_flags(variant)
+    if f["dispatch"]:
+        return ScoredRouter(engine_ids, cfg or GimbalConfig(),
+                            directory=directory,
+                            weights=DISPATCH_WEIGHTS[variant])
+    cls = GimbalRouter if f["dplb"] else RoundRobinRouter
+    return cls(engine_ids, cfg or GimbalConfig())
 
 
 def make_queue(variant: str, cfg: Optional[GimbalConfig] = None) -> SJFQueue:
@@ -84,10 +101,12 @@ def make_rebalancer(variant: str, model_cfg: ModelConfig, num_devices: int,
 def make_cluster_expert_level(variant: str, model_cfg: ModelConfig,
                               num_devices: int,
                               cfg: Optional[GimbalConfig] = None,
-                              anchor: int = 0, prior_seed: Optional[int] = None):
+                              anchor: int = 0, prior_seed: Optional[int] = None,
+                              hot_boost: float = 8.0):
     """The ONE expert level shared by every engine core in a cluster
-    (§V-A.1: experts EP-shard across all engines' devices); pass it to each
-    Engine.  Non-MoE archs get the NullExpertLevel."""
+    (§V-A.1: experts EP-shard across all engines' devices).  Serving passes
+    it to each Engine; ``prior_seed`` seeds it with the synthetic prior.
+    Non-MoE archs get the NullExpertLevel."""
     if not model_cfg.is_moe:
         return NullExpertLevel()
     cfg = cfg or GimbalConfig()
@@ -96,4 +115,4 @@ def make_cluster_expert_level(variant: str, model_cfg: ModelConfig,
                               cfg=cfg,
                               redundancy=_redundancy(variant, model_cfg,
                                                      num_devices, cfg),
-                              prior_seed=prior_seed)
+                              prior_seed=prior_seed, hot_boost=hot_boost)

@@ -14,9 +14,12 @@ Three dispatch modes with the same numerics:
                grouped-GEMM kernels (kernels/ops.py).
 The capacity rule (token-major, then selection; ``_capacity`` rounds up to
 a multiple of 8) and the stats (``expert_ids``, ``expert_counts``,
-``dropped_frac``) match the reference exactly.  The combine is a
-scatter-add (``index_add_``); on CUDA it sums in no fixed order, so outputs
-agree with the reference within float tolerance, not bit for bit.
+``dropped_frac``) match the reference exactly.  The gather modes combine
+by a per-token gather: token t reads its k gated expert rows (a dropped
+selection reads a zero row, never a live slot) and sums them in f32 in
+selection order, so the output is one answer per input on every device and
+in every run.  The reference scatter-adds in slot order, so the two agree
+within float tolerance, not bit for bit.
 """
 from __future__ import annotations
 
@@ -211,14 +214,16 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
             ye = expert_ffn(params, xe)                            # 3x moe_gemm
         else:
             ye = _expert_ffn(params, xe)
-        # combine: scatter-add expert outputs back, weighted by gate
-        gate_tbl = torch.zeros((ns + 1, cap), dtype=x.dtype, device=dev)
-        gate_tbl[slot_flat, pos_flat] = (gates * keep).reshape(-1)
-        gate_tbl = gate_tbl[:ns]
-        contrib = ((ye * gate_tbl[..., None]).reshape(ns * cap, d)
-                   * valid.reshape(-1, 1).to(x.dtype))
-        y = torch.zeros((t, d), dtype=x.dtype, device=dev).index_add_(
-            0, src.reshape(-1), contrib)
+        # combine: each token gathers its k expert rows (a dropped selection
+        # reads the zero row S*C) and sums them, gated, in selection order
+        rows = torch.cat([ye.reshape(ns * cap, d), ye.new_zeros(1, d)])
+        row_idx = torch.where(keep, slot_idx.long() * cap + pos.long(), ns * cap)
+        picked = rows[row_idx].float()                             # (T, k, d)
+        g = gates.float()
+        acc = picked[:, 0] * g[:, 0:1]
+        for j in range(1, k):
+            acc.addcmul_(picked[:, j], g[:, j:j + 1])
+        y = acc.to(x.dtype)
     else:
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
 

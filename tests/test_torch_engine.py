@@ -111,17 +111,16 @@ def test_engine_matches_reference(models, preemption):
 
 
 def test_null_expert_level_and_unported_options_raise(models):
-    """A NullExpertLevel means no level; what the port still lacks (the
-    synthetic prior of the simulator plane) and what no package knows (an
-    unknown layout) raise."""
+    """A NullExpertLevel means no level; what no package knows (an unknown
+    layout) and a prior seed no ``jax.random.key`` takes raise."""
     jc, tc, tree, pt = models
     kw = dict(ENGINE_KW, expert_level=NullExpertLevel())
     eng = Engine(0, tc, pt, device="cpu", **kw)
     assert eng.rebalancer is None and eng.backend.rebalancer is None
-    with pytest.raises(NotImplementedError, match="simulator"):
-        make_cluster_expert_level("gimbal", tc, 2, prior_seed=3)
-    with pytest.raises(NotImplementedError, match="simulator"):
-        ClusterExpertLevel(tc, 2, prior_seed=0)
+    with pytest.raises(ValueError, match="seed"):
+        make_cluster_expert_level("gimbal", tc, 2, prior_seed=2**32)
+    with pytest.raises(ValueError, match="seed"):
+        ClusterExpertLevel(tc, 2, prior_seed=-1)
     with pytest.raises(ValueError, match="kv_layout"):
         Engine(0, tc, pt, device="cpu", **dict(ENGINE_KW, kv_layout="blocks"))
 

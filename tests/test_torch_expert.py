@@ -166,12 +166,28 @@ def test_factories_match_reference(variant):
                       teplb.NullExpertLevel)
 
 
+def _same_prior_level(t, j):
+    np.testing.assert_array_equal(t.tracker.A, j.tracker.A)
+    np.testing.assert_array_equal(t.tracker.W, j.tracker.W)
+    np.testing.assert_array_equal(t.slot_map, j.slot_map)
+    assert t.factor_trail == j.factor_trail
+
+
 def test_synthetic_prior_waits_for_the_simulator_plane():
-    tc = get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="simulator"):
-        teplb.SyntheticExpertLevel(tc, 2)
-    with pytest.raises(NotImplementedError, match="simulator"):
-        tgimbal.make_cluster_expert_level("gimbal", tc, 2, prior_seed=0)
+    """The synthetic prior is ported: ``SyntheticExpertLevel`` and
+    ``make_cluster_expert_level(prior_seed=..., hot_boost=...)`` seed the
+    tracker as the reference's do.  Only the simulator's own factory,
+    ``make_sim_expert_level``, waits for the simulator plane."""
+    jc, tc = jax_smoke_config(ARCH), get_smoke_config(ARCH)
+    _same_prior_level(teplb.SyntheticExpertLevel(tc, 2, seed=5),
+                      jeplb.SyntheticExpertLevel(jc, 2, seed=5))
+    for variant, boost in (("gimbal", 8.0), ("gimbal+rep", 3.0)):
+        _same_prior_level(
+            tgimbal.make_cluster_expert_level(variant, tc, 2, prior_seed=0,
+                                              hot_boost=boost),
+            jgimbal.make_cluster_expert_level(variant, jc, 2, prior_seed=0,
+                                              hot_boost=boost))
+    assert not hasattr(tgimbal, "make_sim_expert_level")
 
 
 def test_bytes_per_expert_bf16_without_jax():

@@ -751,11 +751,14 @@ def test_library_hash_covers_every_shared_header(tmp_path, monkeypatch):
 def test_port_imports_neither_jax_nor_reference():
     """Importing every module of repro_torch (and chip_smoke.py) leaves jax,
     the reference package and ml_dtypes (which JAX registers with numpy) out
-    of sys.modules; the expert level, the slot cache and both new kernels
-    are among the modules walked."""
+    of sys.modules; the expert level, the slot cache, both new kernels, the
+    workloads and the cluster plane (dispatch, cluster, drills) are among
+    the modules walked."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
+import repro_torch.workloads, repro_torch.serving.cluster
+import repro_torch.distributed.drill, repro_torch.core.dispatch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 sys.path.insert(0, sys.argv[1])
@@ -766,12 +769,22 @@ assert not bad, bad
 need = {"repro_torch.core.placement", "repro_torch.core.affinity",
         "repro_torch.core.eplb", "repro_torch.core.gimbal",
         "repro_torch.serving.kvcache", "repro_torch.kernels.flash_decode",
-        "repro_torch.kernels.topk_router"}
+        "repro_torch.kernels.topk_router", "repro_torch.workloads",
+        "repro_torch.serving.cluster", "repro_torch.distributed.drill",
+        "repro_torch.core.dispatch", "repro_torch.core.prefix_directory",
+        "repro_torch.serving.metrics", "repro_torch.distributed.fault"}
 assert need <= set(sys.modules), need - set(sys.modules)
 from repro_torch.serving.kvcache import SlotKVCache, BlockLedger, batch_axes, write_slot
 from repro_torch.core.eplb import ExpertRebalancer, ClusterExpertLevel
 from repro_torch.core.gimbal import make_rebalancer, make_cluster_expert_level
 from repro_torch.kernels import flash_decode, topk_router, decode_attention, route
+from repro_torch.workloads import burstgpt_trace, sharegpt_trace, suite_trace
+from repro_torch.serving import Cluster, Engine, MetricsBus
+from repro_torch.distributed import run_drill, HealthMonitor
+from repro_torch.core import DispatchCore, PrefixDirectory, make_router, synthetic_stats
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
+assert not bad, bad
 print("ok", len([m for m in sys.modules if m.startswith("repro_torch")]))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
