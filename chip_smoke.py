@@ -22,7 +22,10 @@
    plans (several CTAs, several rounds), with identity and replica tables
    and random, tied and skewed logits; four wrong counts are shown to fall
    outside its gate, the profiler shows one launch a call, and one call
-   is captured in a CUDA graph and replayed.
+   is captured in a CUDA graph and replayed.  Both decode kernels are
+   checked and timed the same way at the dense families' shapes too:
+   gemma2-2b's 8 / 4 heads x 256 with softcap 50 over 4864 positions (and
+   int8 pages), granite-20b's 48 query heads on one KV head.
 3. Checks the kernel path against the plain path end to end at full width
    in f32 (2 layers): one paged decode step, and one slot-layout decode
    step under a replicated placement whose weights ``apply_placement``
@@ -56,9 +59,24 @@
    observed expert ids and rebalance events.  Each run prints its wall
    seconds, cluster steps, wall ms per step, generated tokens per wall
    second and per-engine request counts.
-6. Prints the card's name and power limit, one JSON line listing the
-   kernels (with the cluster runs' launches beside the main path's), and
-   as the last line ``{"ok": true, "device": {...}}``.
+6. Serves the dense GQA families at full width, random weights from seed
+   0, each model freed before the next: gemma2-2b at full depth (26
+   layers; first one f32 decode step of 2 layers, kernels against the
+   plain path), 8 requests, then 2 prompts of 4200-4400 tokens past its
+   4096-token window, then a short traced run (the device's busy share
+   and the host's waits on it); qwen2-72b (QKV bias), granite-20b (MQA) and
+   granite-3-8b, each cut to 4 layers, 8 requests each; internvl2-26b's
+   language model at 4 layers, prefilled with a 256-position vision prefix
+   and decoded 8 steps on the slot layout, where kernel 4 is held against
+   its plain version on the run's own cache.  Every request must finish
+   with finite logits, kernel 1 must launch once per global layer a paged
+   decode step (gemma2's windowed local layers attend in plain PyTorch),
+   and the paged runs must share prefix pages and drain the pool.  Each run
+   prints wall seconds, ms a decode step, generated tokens a second and
+   peak device memory.
+7. Prints the card's name and power limit, one JSON line listing the
+   kernels (with the cluster and families runs' launches beside the main
+   path's), and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are missing.  Imports nothing of JAX or of the reference
@@ -67,6 +85,7 @@ package.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -267,6 +286,8 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
         library_ms=main["lib"])
     results.update(_slot_flash_decode_checks(torch, timer, cfg, gen))
     results["topk_router"] = router["topk_router"]
+    for name, err in _family_decode_checks(torch, timer, gen).items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     return results
 
 
@@ -494,6 +515,126 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
         max_abs_err=max(v["err"] for v in fd.values()), ms=main["ms"],
         plain_ms=main["plain"], bound_ms=main["bound"][0], bound_by=main["bound"][1],
         library_ms=main["lib"])}
+
+
+# (arch, positions a row) of the families phase's decode shapes: gemma2's
+# 8 / 4 heads x 256 with softcap 50 over its 4864-position runs past the
+# 4096 window, granite-20b's 48 query heads on one KV head over 1024
+FAMILY_SHAPES = (("gemma2-2b", 4864), ("granite-20b", 1024))
+
+
+def _family_decode_checks(torch, timer: Timer, gen) -> dict:
+    """Kernels 1 and 4 at the shapes the families phase gives them (B = 8,
+    16-position pages for kernel 1; bf16, and for gemma2 int8 pages too;
+    softcap 0 and the family's own), each against its plain version with
+    the fault checks of the qwen3 shapes and timed as they are (CUDA events,
+    and at softcap 0 the profiler's device time, which a loaded host does
+    not inflate), kernel 4 beside one SDPA call at softcap 0.  Returns each
+    kernel's largest error."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode, flash_decode_paged, ref
+    from repro_torch.kernels.flash_decode import CHUNK, split_plan
+
+    rtol, atol = FD_TOL["bfloat16"]
+    errs = {"flash_decode_paged": 0.0, "flash_decode": 0.0}
+
+    def gate(name, got, want, wrong, lengths):
+        err = check_close(name, got, want, rtol, atol)
+        if not (got[lengths == 0] == 0).all():
+            raise AssertionError(f"{name}: length-0 row is not exactly zero")
+        for fault, bad in wrong.items():
+            if max_excess(bad, want, rtol, atol)[1] <= 0:
+                raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
+                                     f"from the plain version")
+        return err
+
+    for arch, s in FAMILY_SHAPES:
+        fc = get_config(arch)
+        b, hq, hkv, d = 8, fc.num_heads, fc.num_kv_heads, fc.head_dim
+        caps = sorted({0.0, fc.attn_logit_softcap})
+        lengths = torch.tensor([s, 0, 1, CHUNK + 1, s // 2 + 3, s - 1, 517, 3 * s // 4],
+                               dtype=torch.int32, device=DEVICE)
+        n_tok = int(lengths.sum())
+        q = torch.randn((b, hq, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+        shape = f"family={arch} B={b} heads={hq}/{hkv}x{d}"
+
+        bs, nb = 16, s // 16
+        kp, vp, kq, vq, ksc, vsc, tables = _paged_pool(torch, gen, b, nb, bs, hkv, d)
+        kinds = [("bf16", (kp, vp, None, None))]
+        if arch == "gemma2-2b":
+            kinds.append(("int8", (kq, vq, ksc, vsc)))
+        for pages, (kk, vv, ks, vs) in kinds:
+            plan = split_plan(b, nb * bs, hq, hkv, d, kk.element_size())
+            for cap in caps:
+                args = (q * 10 if cap else q, kk, vv, tables, lengths)
+                kw = dict(k_scale=ks, v_scale=vs, softcap=cap)
+                name = f"flash_decode_paged[{arch},{pages},softcap={cap}]"
+                wrong = _paged_faults(torch, ref, args, kw, plan.span)
+                if cap:
+                    wrong["no softcap"] = ref.ref_flash_decode_paged(*args, **{**kw, "softcap": 0.0})
+                if ks is not None:
+                    wrong["stale page scale"] = ref.ref_flash_decode_paged(
+                        *args, **{**kw, "k_scale": ks.roll(1), "v_scale": vs.roll(1)})
+                err = gate(name, flash_decode_paged(*args, **kw),
+                           ref.ref_flash_decode_paged(*args, **kw), wrong, lengths)
+                errs["flash_decode_paged"] = max(errs["flash_decode_paged"], err)
+                ms = timer.ms(lambda: flash_decode_paged(*args, **kw))
+                plain = timer.ms(lambda: ref.ref_flash_decode_paged(*args, **kw))
+                kv_item = kk.element_size()
+                n_pages = int(((lengths + bs - 1) // bs).sum())
+                nbytes = (2 * q.numel() * 2 + n_tok * hkv * d * 2 * kv_item
+                          + tables.numel() * 4 + b * 4 + (2 * 4 * n_pages if ks is not None else 0))
+                bound = _bound(nbytes, 4 * n_tok * hq * d, "bfloat16")
+                if not cap:
+                    log(f"device time flash_decode_paged {shape} pages={pages}: kernel "
+                        f"[{timer.device_us(lambda: flash_decode_paged(*args, **kw))}]")
+                log(f"kernel flash_decode_paged {shape} BS={bs} NB={nb} pages={pages} "
+                    f"softcap={cap} tokens={n_tok} n_split={plan.n_split}: max_abs_err="
+                    f"{err:.3e} (rtol {rtol}, atol {atol}) faults_outside_gate={len(wrong)} "
+                    f"ms={ms:.4f} plain_ms={plain:.4f} library_ms=none bound_ms={bound[0]:.4f} "
+                    f"({bound[1]}) {_tb_s(nbytes, ms)}")
+        del kp, vp, kq, vq
+
+        k = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+        v = torch.randn((b, s, hkv, d), generator=gen, device=DEVICE).to(torch.bfloat16)
+        tile_end = ((lengths + CHUNK - 1) // CHUNK * CHUNK).clamp(max=s).to(torch.int32)
+        plan = split_plan(b, s, hq, hkv, d, 2)
+        for cap in caps:
+            args = (q * 10 if cap else q, k, v, lengths)
+            name = f"flash_decode[{arch},softcap={cap}]"
+            wrong = {"no in-chunk length mask": ref.ref_flash_decode(args[0], k, v, tile_end, cap)}
+            if cap:
+                wrong["no softcap"] = ref.ref_flash_decode(*args, 0.0)
+            wrong.update(_merge_faults(torch, ref, ref.ref_flash_decode_partials(
+                *args, cap, plan.span), q.dtype))
+            err = gate(name, flash_decode(*args, softcap=cap), ref.ref_flash_decode(*args, cap),
+                       wrong, lengths)
+            errs["flash_decode"] = max(errs["flash_decode"], err)
+            ms = timer.ms(lambda: flash_decode(*args, softcap=cap))
+            plain = timer.ms(lambda: ref.ref_flash_decode(*args, cap))
+            nbytes = 2 * q.numel() * 2 + n_tok * hkv * d * 2 * 2 + b * 4
+            bound = _bound(nbytes, 4 * n_tok * hq * d, "bfloat16")
+            lib = "none (SDPA takes no softcap)"
+            if not cap:
+                mask = (torch.arange(s, device=DEVICE)[None, :]
+                        < lengths[:, None])[:, None, None, :]
+                qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask,
+                                                          enable_gqa=True)
+                lib = f"{timer.ms(sdpa):.4f}"
+                log(f"device time flash_decode {shape}: kernel "
+                    f"[{timer.device_us(lambda: flash_decode(*args))}] sdpa "
+                    f"[{timer.device_us(sdpa)}]")
+            log(f"kernel flash_decode {shape} S={s} softcap={cap} tokens={n_tok} "
+                f"n_split={plan.n_split}: max_abs_err={err:.3e} (rtol {rtol}, atol {atol}) "
+                f"faults_outside_gate={len(wrong)} ms={ms:.4f} plain_ms={plain:.4f} "
+                f"library_ms(sdpa)={lib} bound_ms={bound[0]:.4f} ({bound[1]}) "
+                f"{_tb_s(nbytes, ms)}")
+        del k, v
+    return errs
 
 
 # (T, route_plan overrides) of the router phase: default plans at decode
@@ -736,12 +877,27 @@ def reference_phase(torch, cfg) -> None:
     """One f32 decode step at full width through the kernels (fused router +
     grouped GEMMs, paged flash-decode) against the plain path (gather
     dispatch, attention over gathered pages) on the same pages."""
+    from repro_torch.models import model as M
+
+    cfg32 = cfg.replace(num_layers=2, dtype="float32")
+    params = M.init_params(cfg32, seed=SEED + 1, device=DEVICE)
+    _paged_step_vs_plain(torch, cfg32, params, "")
+    _replicated_slot_step(torch, cfg32, params)
+    del params
+    torch.cuda.empty_cache()
+
+
+def _paged_step_vs_plain(torch, cfg32, params, label: str) -> None:
+    """Three prompts prefilled into a paged backend, then one decode step of
+    ``decode_step_paged`` through the kernels (kernel 1 once per global
+    layer; for a MoE model the fused router and grouped GEMMs) and one
+    through the plain path (gather dispatch, attention over gathered pages),
+    on the same pages: logits within the f32 gate, prefill tokens equal."""
+    from repro_torch import kernels as K
     from repro_torch.core.types import Request
     from repro_torch.models import model as M
     from repro_torch.serving.backend import TorchBackend
 
-    cfg32 = cfg.replace(num_layers=2, dtype="float32")
-    params = M.init_params(cfg32, seed=SEED + 1, device=DEVICE)
     rng = torch.Generator().manual_seed(SEED + 1)
     outs = []
     for fused in (True, False):
@@ -750,26 +906,29 @@ def reference_phase(torch, cfg) -> None:
                           use_kernels=fused, device=DEVICE)
         rng.manual_seed(SEED + 1)
         for i, plen in enumerate((40, 97, 130)):
-            toks = torch.randint(0, cfg.vocab_size, (plen,), generator=rng).numpy()
+            toks = torch.randint(0, cfg32.vocab_size, (plen,), generator=rng).numpy()
             be.start(Request(i, plen, 4, 0.0, prompt_tokens=toks), 0.0)
         tokens = torch.as_tensor(be.slot_last_token.astype("int64"), device=DEVICE)[:, None]
+        K.reset_launch_counts()
         with torch.no_grad():
             logits, _, _ = M.decode_step_paged(
                 params, cfg32, tokens, be.kv.pages, be.kv.device_tables(),
                 be.kv.positions(), dispatch_mode=be.dispatch_mode, use_kernel=fused)
+        paged = K.flash_decode_paged.launches
+        if paged != (_n_global(cfg32) if fused else 0):
+            raise AssertionError(f"reference{label}: kernel 1 launched {paged} times in "
+                                 f"one decode step of {_n_global(cfg32)} global layers")
         outs.append((logits[:3], be.slot_last_token[:3].copy()))
         del be
     torch.cuda.synchronize()
     (lk, tk), (lp, tp) = outs
-    err = check_close("decode_step_paged f32 kernels vs plain", lk, lp, TOL["float32"])
+    err = check_close(f"decode_step_paged f32{label} kernels vs plain", lk, lp,
+                      TOL["float32"])
     if list(tk) != list(tp):
         raise AssertionError(f"prefill greedy tokens differ: {tk} vs {tp}")
-    log(f"reference: f32 full-width decode step, kernels vs plain path: "
+    log(f"reference{label}: f32 full-width decode step, kernels vs plain path: "
         f"max_abs_err={err:.3e} (tol {TOL['float32']}), logits {tuple(lk.shape)}, "
         f"prefill tokens equal {[int(x) for x in tk]}")
-    _replicated_slot_step(torch, cfg32, params)
-    del params
-    torch.cuda.empty_cache()
 
 
 def _replicated_slot_step(torch, cfg32, params) -> None:
@@ -828,19 +987,22 @@ def _replicated_slot_step(torch, cfg32, params) -> None:
 
 # ----------------------------------------------------------------------------- engine
 
-def _requests(cfg, n_req: int, max_new: int):
-    """``n_req`` requests of 128-512 prompt tokens, half sharing a 256-token
+def _requests(cfg, n_req: int, max_new: int, lo: int = 128, hi: int = 512,
+              prefix_len: int = 256, share_every: int = 2):
+    """``n_req`` requests of ``lo``-``hi`` prompt tokens, every
+    ``share_every``-th one starting with a shared ``prefix_len``-token
     prefix, all submitted at t = 0."""
     import numpy as np
     from repro_torch.core.types import Request
 
     rng = np.random.default_rng(SEED)
-    prefix = rng.integers(0, cfg.vocab_size, 256)
+    prefix = rng.integers(0, cfg.vocab_size, prefix_len)
     reqs = []
     for i in range(n_req):
-        plen = int(rng.integers(128, 513))
-        if i % 2 == 0:
-            toks = np.concatenate([prefix, rng.integers(0, cfg.vocab_size, max(plen - 256, 1))])
+        plen = int(rng.integers(lo, hi + 1))
+        if i % share_every == 0:
+            toks = np.concatenate([prefix, rng.integers(0, cfg.vocab_size,
+                                                        max(plen - prefix_len, 1))])
         else:
             toks = rng.integers(0, cfg.vocab_size, plen)
         reqs.append(Request(i, len(toks), max_new, 0.0, prompt_tokens=toks))
@@ -933,7 +1095,7 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
         raise AssertionError(f"engine[{label}]: non-finite logits")
     if any(r.generated != r.max_new_tokens for r in done):
         raise AssertionError(f"engine[{label}]: a request stopped short of max_new_tokens")
-    L = eng.cfg.num_layers
+    L = eng.cfg.num_moe_layers()            # 0 for a dense model
     path = {"topk_router_replicated": (seen["prefill"] + seen["decode"]) * L,
             "moe_gemm": 3 * (seen["prefill"] + seen["decode"]) * L}
     return dict(launches=launches, path=path, seen=seen, wall=wall,
@@ -941,29 +1103,38 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
 
 
 def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label: str,
-               trace: bool = False) -> dict:
-    """Serve ``n_req`` requests on the paged layout with no expert level and
-    check the run: prefix pages shared, the pool drained, and launch counts
-    equal to the path's.  ``trace`` records the run with torch.profiler and
-    reports the device's busy share and kernel times."""
+               trace: bool = False, reqs=None, max_slots: int = 8, max_seq: int = 1024,
+               prefill_budget: int = 512) -> dict:
+    """Serve ``n_req`` requests (or ``reqs``) on the paged layout with no
+    expert level and check the run: prefix pages shared, the pool drained,
+    and launch counts equal to the path's (kernel 1 once per global layer a
+    decode step: a windowed local layer attends in plain PyTorch).
+    ``trace`` records the run with torch.profiler and reports the device's
+    busy share and kernel times."""
     from repro_torch.serving.engine import Engine
 
-    eng = Engine(0, cfg, params, variant="gimbal", expert_level=None, max_slots=8,
-                 max_seq=1024, prefill_budget=512, kv_layout="paged", kv_block_size=16,
-                 kv_quant=kv_quant, dispatch_mode="fused", use_kernels=True,
-                 device=DEVICE)
-    run = _serve(torch, eng, _requests(cfg, n_req, max_new), "decode_step_paged", label,
-                 trace=trace)
+    eng = Engine(0, cfg, params, variant="gimbal", expert_level=None, max_slots=max_slots,
+                 max_seq=max_seq, prefill_budget=prefill_budget, kv_layout="paged",
+                 kv_block_size=16, kv_quant=kv_quant, dispatch_mode="fused",
+                 use_kernels=True, device=DEVICE)
+    if reqs is None:
+        reqs = _requests(cfg, n_req, max_new)
+    run = _serve(torch, eng, reqs, "decode_step_paged", label, trace=trace)
     log(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
         f"blocks_used_after={eng.kv.blocks_used}")
     if eng.kv.shared_hits <= 0 or eng.kv.blocks_used != 0:
         raise AssertionError(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
                              f"blocks_used={eng.kv.blocks_used}")
-    want = dict(run["path"], flash_decode_paged=run["seen"]["decode"] * cfg.num_layers,
+    want = dict(run["path"], flash_decode_paged=run["seen"]["decode"] * _n_global(cfg),
                 flash_decode=0, topk_router=0)
     if run["launches"] != want:
         raise AssertionError(f"engine[{label}]: launches {run['launches']} != path {want}")
     return run
+
+
+def _n_global(cfg) -> int:
+    """Layers that attend over the whole sequence (all but gemma2's local ones)."""
+    return sum(not cfg.layer_is_local(i) for i in range(cfg.num_layers))
 
 
 def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
@@ -1381,14 +1552,180 @@ def cluster_phase(torch, cfg, params) -> dict:
             "C3 repeat": c3b["launches"]}
 
 
+# ----------------------------------------------------------------------------- families
+
+# (arch, layers kept) of the families phase's reduced runs: full width, depth
+# cut because 80 / 52 / 40 / 48 layers are ~145 / ~56 / ~16 / ~40 GB of bf16
+# weights and depth changes no kernel shape
+FAMILY_DEPTHS = (("qwen2-72b", 4), ("granite-20b", 4), ("granite-3-8b", 4))
+
+
+def _family_params(torch, cfg, label: str):
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=SEED, device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"family[{label}]: {cfg.num_layers} layers, d_model={cfg.d_model} heads="
+        f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
+        f"{cfg.vocab_size} qkv_bias={cfg.qkv_bias} softcaps={cfg.attn_logit_softcap}/"
+        f"{cfg.final_logit_softcap} window={cfg.sliding_window} global_layers="
+        f"{_n_global(cfg)}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
+        f"parameters, init {time.perf_counter() - t0:.3f} s")
+    return params
+
+
+def _free(torch) -> None:
+    """Release what the last run left: the engines' wrapped methods form
+    reference cycles, which hold device memory until a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _family_engine(torch, cfg, params, label: str, reqs, **engine_kw) -> dict:
+    """One paged Engine run of a dense family (kernel 1 on the global
+    layers, nothing else launched), with its peak device memory."""
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    run = engine_run(torch, cfg, params, n_req=len(reqs), max_new=0, kv_quant=None,
+                     label=label, reqs=reqs, **engine_kw)
+    log(f"engine[{label}]: peak_device_memory_gib="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return run["launches"]
+
+
+def _vlm_run(torch, cfg, params, label: str) -> dict:
+    """internvl2's language model: four rows prefilled with a 256-position
+    vision prefix (seeded stand-ins for the stub frontend's embeddings)
+    ahead of 128-511 prompt tokens into a slot cache, then 8 slot decode
+    steps of all rows; logits finite and of the prefix-covering shape.
+    Kernel 4 is held against its plain version on layer 0 and the last
+    layer of the run's own cache after the last step (those launches are
+    the run's count: the slot path's attention is plain)."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model as M
+    from repro_torch.serving.kvcache import SlotKVCache, write_slot
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 5)
+    rng = np.random.default_rng(SEED)
+    n_rows, max_seq, p = 4, 1024, cfg.vision_prefix_len
+    kv = SlotKVCache(cfg, n_rows, max_seq, device=DEVICE)
+    tokens = torch.zeros((n_rows, 1), dtype=torch.long, device=DEVICE)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for row, plen in enumerate((128, 300, 511, 200)):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, plen)), device=DEVICE)
+            vis = torch.randn((1, p, cfg.d_model), generator=gen, device=DEVICE)
+            cache = M.init_cache(cfg, 1, p + plen, device=DEVICE)
+            logits, cache, _ = M.prefill(params, cfg, toks, cache, vision_embeds=vis)
+            if tuple(logits.shape) != (1, p + plen, cfg.vocab_size) \
+                    or not bool(logits.isfinite().all()):
+                raise AssertionError(f"vlm[{label}]: prefill logits {tuple(logits.shape)}, "
+                                     "not the prefix-covering shape or not finite")
+            slot = kv.alloc()
+            write_slot(kv.cache, cache, slot, kv.write_axes)
+            kv.slot_len[slot] = p + plen
+            tokens[slot, 0] = int(torch.argmax(logits[0, -1]))
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(8):
+            logits, _, _ = M.decode_step(params, cfg, tokens, kv.cache, kv.positions())
+            if not bool(logits.isfinite().all()):
+                raise AssertionError(f"vlm[{label}]: non-finite decode logits")
+            tokens = torch.argmax(logits, -1)[:, None]
+            kv.slot_len += 1
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t1
+        path = {fn.__name__: fn.launches for fn in K.KERNELS}
+        if any(path.values()):
+            raise AssertionError(f"vlm[{label}]: the plain slot path launched {path}")
+        lengths = torch.as_tensor(kv.slot_len, dtype=torch.int32, device=DEVICE)
+        err = 0.0
+        for layer in (0, cfg.num_layers - 1):
+            ck, cv = kv.cache["layers"]["k"][layer], kv.cache["layers"]["v"][layer]
+            q = torch.randn((n_rows, cfg.num_heads, cfg.head_dim), generator=gen,
+                            device=DEVICE).to(cfg.adtype)
+            err = max(err, check_close(f"flash_decode on {label}'s slot cache",
+                                       ops.decode_attention(q, ck, cv, lengths),
+                                       ref.ref_flash_decode(q, ck, cv, lengths),
+                                       *FD_TOL[cfg.dtype]))
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    wall = t_prefill + t_decode
+    log(f"vlm[{label}]: rows={n_rows} vision_prefix={p} prompt_tokens={[128, 300, 511, 200]} "
+        f"resident={kv.slot_len.tolist()} prefill_s={t_prefill:.3f} decode_steps=8 "
+        f"ms_per_decode_step={1e3 * t_decode / 8:.3f} generated_tokens_per_s="
+        f"{8 * n_rows / t_decode:.2f} wall_s={wall:.3f} flash_decode_on_cache_max_abs_err="
+        f"{err:.3e} launches={launches} peak_device_memory_gib="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return launches
+
+
+def families_phase(torch) -> dict:
+    """The dense GQA families at full width: gemma2-2b at full depth (an f32
+    decode step of 2 layers, kernels against the plain path; 8 requests; 2
+    prompts past the 4096 window), then qwen2-72b, granite-20b and
+    granite-3-8b at 4 layers (8 requests each) and internvl2's language
+    model at 4 layers with its vision prefix; a short traced gemma2 run
+    gives the device's busy share.  Each model is freed before the next.
+    Returns each run's kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    _free(torch)
+    log(f"families phase: device memory held on entry "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    runs = {}
+    cfg = get_config("gemma2-2b")
+    cfg32 = cfg.replace(num_layers=2, dtype="float32")
+    params = M.init_params(cfg32, seed=SEED + 1, device=DEVICE)
+    _paged_step_vs_plain(torch, cfg32, params, "[gemma2-2b, 2 layers]")
+    del params
+    _free(torch)
+    params = _family_params(torch, cfg, "gemma2-2b")
+    runs["gemma2-2b"] = _family_engine(torch, cfg, params, "gemma2-2b",
+                                       _requests(cfg, 8, 32))
+    runs["gemma2-2b past the window"] = _family_engine(
+        torch, cfg, params, "gemma2-2b past the window",
+        _requests(cfg, 2, 16, lo=4200, hi=4400, prefix_len=2048, share_every=1),
+        max_slots=2, max_seq=4864, prefill_budget=4864)
+    # a short traced window: the profiler's own processing grows with the
+    # events of 26 layers a step
+    runs["gemma2-2b traced"] = _family_engine(torch, cfg, params, "gemma2-2b traced",
+                                              _requests(cfg, 4, 8), trace=True)
+    del params
+    for arch, depth in FAMILY_DEPTHS:
+        cfg = get_config(arch).replace(num_layers=depth)
+        params = _family_params(torch, cfg, arch)
+        runs[arch] = _family_engine(torch, cfg, params, arch, _requests(cfg, 8, 32))
+        del params
+    cfg = get_config("internvl2-26b").replace(num_layers=4)
+    params = _family_params(torch, cfg, "internvl2-26b")
+    runs["internvl2-26b"] = _vlm_run(torch, cfg, params, "internvl2-26b")
+    del params
+    _free(torch)
+    log(f"families phase: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 def _report_trace(prof, wall_s: float, label: str) -> list:
-    """Device busy share over the traced run and the kernels that took the
-    most device time (summed over launches), with the decode-attention
-    split and merge passes listed wherever they rank.  Only the device's own events
-    count: an operator's row repeats the time of the kernels it launched."""
+    """Device busy share over the traced run, the host's synchronising
+    runtime calls, and the kernels that took the most device time (summed
+    over launches), with the decode-attention split and merge passes, the
+    router and the host-to-device copies listed wherever they rank.  Only
+    the device's own events count: an operator's row repeats the time of
+    the kernels it launched."""
     from torch.autograd import DeviceType
     rows = []
-    for ev in prof.key_averages():
+    averages = prof.key_averages()
+    for ev in averages:
         if ev.device_type != DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total", None)
@@ -1402,11 +1739,17 @@ def _report_trace(prof, wall_s: float, label: str) -> list:
         return rows
     log(f"trace[{label}]: wall_ms={1e3 * wall_s:.3f} device_busy_ms={busy_ms:.3f} "
         f"busy_share={busy_ms / (1e3 * wall_s):.4f} idle_share={1 - busy_ms / (1e3 * wall_s):.4f}")
+    # the host's waits on the device: a copy from pageable host memory
+    # (cudaMemcpyAsync) is followed by a stream synchronize
+    waits = {ev.key: ev.count for ev in averages
+             if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                           "cudaMemcpyAsync")}
+    log(f"trace[{label}]: host runtime calls {waits}")
     ranked = sorted(rows, reverse=True)
     for i, (us, count, key) in enumerate(ranked):
         # the ten largest rows, and the decode-attention and router kernels
-        # wherever they rank
-        if i < 10 or "rt::split::" in key or "rt::router::" in key:
+        # and the host-to-device copies wherever they rank
+        if i < 10 or "rt::split::" in key or "rt::router::" in key or "HtoD" in key:
             log(f"trace[{label}]:   {us / 1e3:10.3f} ms  {count:6d} calls  {key[:90]}")
     return rows
 
@@ -1474,6 +1817,9 @@ def main() -> int:
                trace=True)
     cluster = cluster_phase(torch, cfg, params)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del params
+    torch.cuda.empty_cache()
+    families = families_phase(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1490,7 +1836,8 @@ def main() -> int:
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                     "cluster_launches": {run: n[name] for run, n in cluster.items()}})
+                     "cluster_launches": {run: n[name] for run, n in cluster.items()},
+                     "families_launches": {run: n[name] for run, n in families.items()}})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,12 @@
 """Architecture registry of the port: ``get_config`` / ``get_smoke_config``.
 
-Only the paper's own model is registered so far; the reference's ten other
-architectures join as their layers are ported (ROADMAP.md, Queue 1).
+Every architecture of the reference (the ten assigned ones plus the paper's
+own Qwen3-30B-A3B) is a module exposing CONFIG (the exact published config)
+and smoke_config() (a reduced same-family variant for CPU tests), with the
+values of ``repro.configs``.  All of them feed the simulator's cost model;
+``models.model`` runs the GQA families and raises ``NotImplementedError``
+for the others (ROADMAP.md, Queue 1).  The dry-run's input stand-ins and
+shape cells wait for the launch slice.
 """
 from __future__ import annotations
 
@@ -11,8 +16,20 @@ from typing import List
 from repro_torch.models.config import ModelConfig
 
 _MODULES = {
-    "qwen3-30b-a3b": "qwen3_30b_a3b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "internvl2-26b": "internvl2_26b",
+    "zamba2-1.2b": "zamba2_1_2b",
+    "mamba2-370m": "mamba2_370m",
+    "granite-3-8b": "granite_3_8b",
+    "granite-20b": "granite_20b",
+    "gemma2-2b": "gemma2_2b",
+    "qwen2-72b": "qwen2_72b",
+    "whisper-medium": "whisper_medium",
+    "qwen3-30b-a3b": "qwen3_30b_a3b",   # the paper's model (not an assigned cell)
 }
+
+ASSIGNED_ARCHS = tuple(a for a in _MODULES if a != "qwen3-30b-a3b")
 
 
 def list_archs() -> List[str]:
@@ -33,4 +50,4 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["list_archs", "get_config", "get_smoke_config"]
+__all__ = ["ASSIGNED_ARCHS", "list_archs", "get_config", "get_smoke_config"]

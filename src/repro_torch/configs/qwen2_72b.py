@@ -1,0 +1,26 @@
+"""qwen2-72b — dense GQA with QKV bias (arXiv:2407.10671; hf).
+
+80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b",
+    family="dense",
+    num_layers=80,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,
+    head_dim=128,
+    d_ff=29568,
+    vocab_size=152064,
+    attention_type="gqa",
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+)
+
+
+def smoke_config() -> ModelConfig:
+    return CONFIG.replace(
+        num_layers=3, d_model=64, num_heads=4, num_kv_heads=2, head_dim=16,
+        d_ff=128, vocab_size=128, dtype="float32")

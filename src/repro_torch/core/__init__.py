@@ -23,7 +23,7 @@ from repro_torch.core.eplb import (ClusterExpertLevel, ExpertRebalancer,
 from repro_torch.core.gimbal import (DISPATCH_VARIANTS, VARIANTS,
                                      make_cluster_expert_level, make_queue,
                                      make_rebalancer, make_router,
-                                     variant_flags)
+                                     make_sim_expert_level, variant_flags)
 from repro_torch.core.dispatch import (DISPATCH_WEIGHTS, DispatchCore,
                                        DispatchWeights, ScoredRouter)
 from repro_torch.core.prefix_cache import PrefixCache, block_hashes
@@ -45,7 +45,7 @@ __all__ = [
     "ClusterExpertLevel", "ExpertRebalancer", "NullExpertLevel", "RebalanceEvent",
     "SyntheticExpertLevel",
     "DISPATCH_VARIANTS", "VARIANTS", "make_cluster_expert_level", "make_queue",
-    "make_rebalancer", "make_router", "variant_flags",
+    "make_rebalancer", "make_router", "make_sim_expert_level", "variant_flags",
     "DISPATCH_WEIGHTS", "DispatchCore", "DispatchWeights", "ScoredRouter",
     "PrefixCache", "block_hashes", "PrefixDirectory",
     "Backend", "RunningSeq", "SchedEvent", "SchedulerCore",

@@ -11,9 +11,6 @@ each one uses.
   * "gimbal+rep" — gimbal with hot-expert replication
   * "rr" | "prefix" | "kv" | "sticky" | "combined" — engine-level dispatch
     variants (SJF + EDR held fixed, only the dispatch rule varies)
-
-``make_sim_expert_level`` waits for the simulator plane (ROADMAP.md,
-Queue 1).
 """
 from __future__ import annotations
 
@@ -21,7 +18,7 @@ from typing import Dict, Optional, Sequence
 
 from repro_torch.core.dispatch import DISPATCH_WEIGHTS, ScoredRouter
 from repro_torch.core.eplb import (ClusterExpertLevel, ExpertRebalancer,
-                                   NullExpertLevel)
+                                   NullExpertLevel, SyntheticExpertLevel)
 from repro_torch.core.prefix_directory import PrefixDirectory
 from repro_torch.core.router import GimbalRouter, RoundRobinRouter
 from repro_torch.core.sjf import SJFQueue
@@ -116,3 +113,20 @@ def make_cluster_expert_level(variant: str, model_cfg: ModelConfig,
                               redundancy=_redundancy(variant, model_cfg,
                                                      num_devices, cfg),
                               prior_seed=prior_seed, hot_boost=hot_boost)
+
+
+def make_sim_expert_level(variant: str, model_cfg: ModelConfig, num_devices: int,
+                          cfg: Optional[GimbalConfig] = None, anchor: int = 0,
+                          seed: int = 0, hot_boost: float = 8.0):
+    """Simulator twin of make_cluster_expert_level: same policy wiring, the
+    synthetic Fig.3/4 statistics installed as the prior (``seed`` plays the
+    reference's ``jax.random.key(seed)``), plus the cost model's
+    (moe_mult, cross_frac) coupling factors."""
+    if not model_cfg.is_moe:
+        return NullExpertLevel()
+    cfg = cfg or GimbalConfig()
+    return SyntheticExpertLevel(model_cfg, num_devices,
+                                policy=_expert_policy(variant), anchor=anchor,
+                                cfg=cfg, seed=seed, hot_boost=hot_boost,
+                                redundancy=_redundancy(variant, model_cfg,
+                                                       num_devices, cfg))

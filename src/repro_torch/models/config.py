@@ -2,6 +2,7 @@
 
 The same frozen dataclass and field names as the reference, so one config
 file reads the same in both packages; ``adtype`` returns a torch dtype.  The
+parameter counts the simulator's cost model reads are the reference's.  The
 dry-run shape cells of the reference wait for the launch slice.
 """
 from __future__ import annotations
@@ -103,6 +104,14 @@ class ModelConfig:
     def is_hybrid(self) -> bool:
         return self.ssm_state > 0 and self.shared_attn_every > 0
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def layer_is_moe(self, i: int) -> bool:
         if not self.is_moe:
             return False
@@ -117,6 +126,19 @@ class ModelConfig:
         if self.local_global_period <= 0 or self.sliding_window <= 0:
             return False
         return i % self.local_global_period != self.local_global_period - 1
+
+    @property
+    def q_head_dim(self) -> int:
+        """Per-head query dim (MLA splits into nope+rope)."""
+        if self.attention_type == "mla":
+            return self.qk_nope_head_dim + self.qk_rope_head_dim
+        return self.head_dim
+
+    @property
+    def o_head_dim(self) -> int:
+        if self.attention_type == "mla":
+            return self.v_head_dim
+        return self.head_dim
 
     def kv_bytes_per_token(self) -> int:
         """Per-token KV-cache bytes — the 'KV usage' signal of Alg. 1."""
@@ -135,5 +157,57 @@ class ModelConfig:
             return self.num_layers // max(self.shared_attn_every, 1)
         return self.num_layers
 
+    def active_params(self) -> int:
+        """Approximate activated parameter count (per token)."""
+        return _param_count(self, active_only=True)
+
+    def total_params(self) -> int:
+        return _param_count(self, active_only=False)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+def _param_count(cfg: ModelConfig, active_only: bool) -> int:
+    d = cfg.d_model
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    per_layer = 0
+    # attention
+    if cfg.attention_type == "mla":
+        q_in = cfg.q_lora_rank if cfg.q_lora_rank else d
+        per_layer += (d * cfg.q_lora_rank if cfg.q_lora_rank else 0)
+        per_layer += q_in * cfg.num_heads * cfg.q_head_dim
+        per_layer += d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+        per_layer += cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim)
+        per_layer += cfg.num_heads * cfg.v_head_dim * d
+    elif cfg.attention_type == "gqa":
+        per_layer += d * cfg.num_heads * cfg.head_dim          # Q
+        per_layer += 2 * d * cfg.num_kv_heads * cfg.head_dim   # K,V
+        per_layer += cfg.num_heads * cfg.head_dim * d          # O
+    # ffn / experts
+    ffn_dense = 3 * d * cfg.d_ff  # gated (swiglu)
+    if cfg.is_moe:
+        expert = 3 * d * cfg.moe_d_ff
+        n_moe = sum(cfg.layer_is_moe(i) for i in range(cfg.num_layers))
+        n_dense = cfg.num_layers - n_moe
+        shared = cfg.num_shared_experts * expert
+        if active_only:
+            moe_part = n_moe * (cfg.moe_top_k * expert + shared)
+        else:
+            moe_part = n_moe * (cfg.num_experts * expert + shared)
+        total_layers = moe_part + n_dense * ffn_dense + cfg.num_layers * per_layer
+    elif cfg.is_ssm or cfg.is_hybrid:
+        di, nh, ns = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
+        ssm = d * (2 * di + 2 * ns + nh) + di * d + cfg.ssm_conv * (di + 2 * ns)
+        total_layers = cfg.num_layers * ssm
+        if cfg.is_hybrid:
+            shared_blk = per_layer + ffn_dense
+            total_layers += shared_blk  # weights shared across invocations
+    else:
+        total_layers = cfg.num_layers * (per_layer + ffn_dense)
+    if cfg.is_encoder_decoder:
+        # encoder self-attn + ffn, decoder cross-attn
+        enc = cfg.num_encoder_layers * (per_layer + ffn_dense)
+        cross = cfg.num_layers * per_layer
+        total_layers += enc + cross
+    return int(emb + total_layers)

@@ -1,11 +1,16 @@
 """Language model of the port: init / prefill / slot and paged decode for
-homogeneous GQA stacks (dense or MoE), ported from ``repro.models.model``.
+homogeneous GQA stacks, ported from ``repro.models.model``: MoE (qwen3) and
+dense (gemma2's local/global alternation and softcaps, qwen2's QKV bias,
+granite's GQA and MQA), and a VLM's language model (internvl2), whose stub
+vision frontend's embeddings prefix the tokens at prefill.
 
 Parameters keep the reference's stacked layout: ``params["blocks"]`` holds
 every layer's tensors with a leading L axis, so a layer is ``a[l]`` of every
 leaf and relocating experts is a gather on the expert axis.  A Python loop
-over layers replaces ``lax.scan``.  The other families (prologue / interleaved
-MoE, SSM, hybrid, MLA, encoder-decoder) are later slices.
+over layers replaces ``lax.scan``, so each layer's local/global flag is a
+Python bool and only its own attention branch runs (the reference's scan
+computes both branches and selects).  The other families (prologue /
+interleaved MoE, SSM, hybrid, MLA, encoder-decoder) are later slices.
 """
 from __future__ import annotations
 
@@ -26,8 +31,9 @@ def _check_supported(cfg: ModelConfig) -> None:
             or cfg.is_encoder_decoder
             or (cfg.is_moe and (cfg.first_k_dense != 0 or cfg.moe_every != 1))):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs homogeneous GQA stacks only so far "
-            "(ROADMAP.md, Queue 1 items 11-14)")
+            f"{cfg.name}: the port runs homogeneous GQA stacks only so far; "
+            "first_k_dense / interleaved MoE, SSM and hybrid stacks, MLA and "
+            "encoder-decoder models wait for ROADMAP.md Queue 1 items 12-14")
 
 
 def _stack(trees: List[Any]):
@@ -122,12 +128,17 @@ def _head(params, cfg: ModelConfig, x):
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
-            placements=None, dispatch_mode: str = "dense", stats: bool = False):
+            vision_embeds: Optional[torch.Tensor] = None, placements=None,
+            dispatch_mode: str = "dense", stats: bool = False):
     """Full-sequence forward (train-forward with cache=None, prefill with a
-    cache, which is written in place).  Returns (logits (B,S,V) f32, cache,
-    aux)."""
+    cache, which is written in place).  For a VLM, ``vision_embeds``
+    (B, P, d) precede the token embeddings, cast to their dtype, and the
+    positions, logits and cache cover the P + S positions.  Returns
+    (logits (B,P+S,V) f32, cache, aux)."""
     _check_supported(cfg)
     x = embed_apply(params["embed"], tokens)
+    if cfg.family == "vlm" and vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     pstack = _placement_stack(cfg, placements, x.device)

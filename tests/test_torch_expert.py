@@ -174,10 +174,11 @@ def _same_prior_level(t, j):
 
 
 def test_synthetic_prior_waits_for_the_simulator_plane():
-    """The synthetic prior is ported: ``SyntheticExpertLevel`` and
-    ``make_cluster_expert_level(prior_seed=..., hot_boost=...)`` seed the
-    tracker as the reference's do.  Only the simulator's own factory,
-    ``make_sim_expert_level``, waits for the simulator plane."""
+    """The synthetic prior is ported: ``SyntheticExpertLevel``,
+    ``make_cluster_expert_level(prior_seed=..., hot_boost=...)`` and, with
+    the simulator plane, its own factory ``make_sim_expert_level(seed=...)``
+    seed the tracker as the reference's do; a dense config gets the
+    NullExpertLevel from both packages."""
     jc, tc = jax_smoke_config(ARCH), get_smoke_config(ARCH)
     _same_prior_level(teplb.SyntheticExpertLevel(tc, 2, seed=5),
                       jeplb.SyntheticExpertLevel(jc, 2, seed=5))
@@ -187,7 +188,15 @@ def test_synthetic_prior_waits_for_the_simulator_plane():
                                               hot_boost=boost),
             jgimbal.make_cluster_expert_level(variant, jc, 2, prior_seed=0,
                                               hot_boost=boost))
-    assert not hasattr(tgimbal, "make_sim_expert_level")
+    for variant, seed, boost in (("gimbal", 0, 8.0), ("gimbal+rep", 7, 3.0),
+                                 ("eplb", 2, 8.0)):
+        _same_prior_level(
+            tgimbal.make_sim_expert_level(variant, tc, 2, seed=seed, hot_boost=boost),
+            jgimbal.make_sim_expert_level(variant, jc, 2, seed=seed, hot_boost=boost))
+    assert isinstance(tgimbal.make_sim_expert_level("gimbal", get_smoke_config("gemma2-2b"), 2),
+                      teplb.NullExpertLevel)
+    assert isinstance(jgimbal.make_sim_expert_level("gimbal", jax_smoke_config("gemma2-2b"), 2),
+                      jeplb.NullExpertLevel)
 
 
 def test_bytes_per_expert_bf16_without_jax():

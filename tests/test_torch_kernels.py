@@ -753,12 +753,14 @@ def test_port_imports_neither_jax_nor_reference():
     the reference package and ml_dtypes (which JAX registers with numpy) out
     of sys.modules; the expert level, the slot cache, both new kernels, the
     workloads and the cluster plane (dispatch, cluster, drills) are among
-    the modules walked."""
+    the modules walked, and so are the simulator plane and every config of
+    the architecture registry."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
 import repro_torch.workloads, repro_torch.serving.cluster
 import repro_torch.distributed.drill, repro_torch.core.dispatch
+import repro_torch.sim, repro_torch.configs
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 sys.path.insert(0, sys.argv[1])
@@ -772,8 +774,20 @@ need = {"repro_torch.core.placement", "repro_torch.core.affinity",
         "repro_torch.kernels.topk_router", "repro_torch.workloads",
         "repro_torch.serving.cluster", "repro_torch.distributed.drill",
         "repro_torch.core.dispatch", "repro_torch.core.prefix_directory",
-        "repro_torch.serving.metrics", "repro_torch.distributed.fault"}
+        "repro_torch.serving.metrics", "repro_torch.distributed.fault",
+        "repro_torch.sim", "repro_torch.sim.costmodel", "repro_torch.sim.backend",
+        "repro_torch.sim.simulator", "repro_torch.configs.gemma2_2b",
+        "repro_torch.configs.qwen2_72b", "repro_torch.configs.granite_20b",
+        "repro_torch.configs.granite_3_8b", "repro_torch.configs.internvl2_26b",
+        "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.whisper_medium",
+        "repro_torch.configs.llama4_maverick_400b_a17b",
+        "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b"}
 assert need <= set(sys.modules), need - set(sys.modules)
+from repro_torch.configs import ASSIGNED_ARCHS, list_archs, get_config
+assert len(ASSIGNED_ARCHS) == 10 and len(list_archs()) == 11
+assert all(get_config(a).total_params() > 0 for a in list_archs())
+from repro_torch.sim import simulate, SimEngine, CostModel, PROFILES
+from repro_torch.core.gimbal import make_sim_expert_level
 from repro_torch.serving.kvcache import SlotKVCache, BlockLedger, batch_axes, write_slot
 from repro_torch.core.eplb import ExpertRebalancer, ClusterExpertLevel
 from repro_torch.core.gimbal import make_rebalancer, make_cluster_expert_level
