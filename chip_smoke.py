@@ -25,7 +25,14 @@
    is captured in a CUDA graph and replayed.  Both decode kernels are
    checked and timed the same way at the dense families' shapes too:
    gemma2-2b's 8 / 4 heads x 256 with softcap 50 over 4864 positions (and
-   int8 pages), granite-20b's 48 query heads on one KV head.
+   int8 pages), granite-20b's 48 query heads on one KV head, and kernel 4
+   at llama4's 40 / 8 heads x 128.  Before any model is resident, the
+   router is checked the same way at deepseek-v2's E = 160, k = 6 and
+   llama4's E = 128, k = 1 (identity and replica tables, kernel 5; T = 8,
+   512 and a forced plan), and ``moe_gemm`` in bf16 at deepseek's (160, C,
+   5120) x (160, 5120, 1536) and (160, C, 1536) x (160, 1536, 5120) and
+   llama4's (128, C, 5120) x (128, 5120, 8192) and (128, C, 8192) x (128,
+   8192, 5120), C = 8 and 32.
 3. Checks the kernel path against the plain path end to end at full width
    in f32 (2 layers): one paged decode step, and one slot-layout decode
    step under a replicated placement whose weights ``apply_placement``
@@ -74,9 +81,25 @@
    and the paged runs must share prefix pages and drain the pool.  Each run
    prints wall seconds, ms a decode step, generated tokens a second and
    peak device memory.
-7. Prints the card's name and power limit, one JSON line listing the
-   kernels (with the cluster and families runs' launches beside the main
-   path's), and as the last line ``{"ok": true, "device": {...}}``.
+7. Serves the MoE variants and runs the encoder-decoder at full width,
+   random bf16 weights from seed 0, each model freed before the next:
+   deepseek-v2 (MLA, a dense prologue layer, 2 shared experts, top-6 of
+   160; first one f32 decode step of 2 layers under a replicated
+   placement, kernels against the plain path and MLA's absorbed decode
+   against the naive one), then 16 requests at 4 layers through ``Engine``
+   on the slot layout under "gimbal+rep", which must rebalance into a
+   replicated map (S = 164) that the router kernel receives; llama4 at 2
+   layers (interleaved top-1 MoE with a shared expert; one bf16 decode
+   step, kernels against the plain path), then 16 requests under "vllm"
+   (no relocation) with kernel 4 held against its plain version on the
+   run's slot cache; a short traced run of each gives moe_gemm's share of
+   device time.  Each engine run counts the slots no row reached at
+   T = 8.  whisper-medium at full depth (24 + 24 layers): seeded (8, 1500,
+   1024) frames, prompts of 16-64 tokens, ``prefill`` then 32
+   ``decode_step``s, logits finite.  Launch counts must match the path.
+8. Prints the card's name and power limit, one JSON line listing the
+   kernels (with the cluster, families and variants runs' launches beside
+   the main path's), and as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are missing.  Imports nothing of JAX or of the reference
@@ -108,6 +131,7 @@ FD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (2e-4, 2e-4)}
 # sides accumulate in f32 and round once, so a bf16 output may differ by one
 # rounding step (< 0.8 % of the value); atol covers values near zero
 MG_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (2e-4, 2e-4)}
+PROFILE_ATTEMPTS = 5     # traces Timer.device_rows takes before it trusts an empty one
 
 
 def log(*a) -> None:
@@ -144,23 +168,36 @@ class Timer:
     def device_rows(self, fn, iters: int = 20) -> list:
         """(kernel name, device us per call, launches) of each kernel ``fn``
         launches, from torch.profiler over ``iters`` calls with the L2
-        flushed before each (the flush's own kernel left out)."""
+        flushed before each (the flush's own kernel left out).  A trace
+        that holds no device event at all, not even the flushes', is taken
+        again after a pause of 1, 2, 4, ... s, up to PROFILE_ATTEMPTS
+        traces: on the card the profiler now and then hands back empty
+        traces for a while, which says nothing about ``fn``'s kernels (a
+        trace that shows the flushes is never retaken)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         torch = self.torch
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
+        for attempt in range(1, PROFILE_ATTEMPTS + 1):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            events = [ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA]
+            if events or attempt == PROFILE_ATTEMPTS:
+                break
+            log(f"profiler: a trace of {iters} calls holds no device event, not even the "
+                f"L2 flushes'; tracing again in {2 ** (attempt - 1)} s "
+                f"({attempt}/{PROFILE_ATTEMPTS})")
+            time.sleep(2 ** (attempt - 1))
         rows = []
-        for ev in prof.key_averages():
+        for ev in events:
             us = getattr(ev, "self_device_time_total", None)
             if us is None:
                 us = getattr(ev, "self_cuda_time_total", 0.0)
-            if ev.device_type == DeviceType.CUDA and us > 0 and "FillFunctor" not in ev.key:
+            if us > 0 and "FillFunctor" not in ev.key:
                 rows.append((ev.key, us / iters, ev.count))
         return rows
 
@@ -188,6 +225,26 @@ class Timer:
         return statistics.median(out) * 1e6
 
 
+class EmptyTrace(AssertionError):
+    """A traced run's profiler trace held no device event at all."""
+
+
+def _retraced(run):
+    """``run(trace=True)``, run again after a pause of 1, 2, 4, ... s while
+    its trace holds no device event at all (``EmptyTrace``), up to
+    PROFILE_ATTEMPTS runs, as ``Timer.device_rows`` retakes a trace.
+    ``run`` builds its engine and requests anew on each call."""
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        try:
+            return run(trace=True)
+        except EmptyTrace as exc:
+            if attempt == PROFILE_ATTEMPTS:
+                raise
+            log(f"{exc}; running it again in {2 ** (attempt - 1)} s "
+                f"({attempt}/{PROFILE_ATTEMPTS})")
+            time.sleep(2 ** (attempt - 1))
+
+
 def max_excess(got, want, rtol: float, atol: float) -> tuple:
     """(max |got - want|, max of |got - want| - rtol * |want| - atol): the
     second is <= 0 when every element is within allclose(rtol, atol)."""
@@ -210,9 +267,6 @@ def check_close(name: str, got, want, rtol: float, atol: float | None = None) ->
 # ----------------------------------------------------------------------------- kernels
 
 def kernel_phase(torch, timer: Timer, cfg) -> dict:
-    from repro_torch.kernels import moe_gemm, ref
-    from repro_torch.kernels.moe_gemm import launch_plan
-
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
     dev = DEVICE
@@ -235,47 +289,8 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
         for c in (8, 48):
             for proj, w, din in (("gate/up", w_up, dm), ("down", w_down, f)):
                 x = randn(e, c, din, dtype=dtype)
-                got = moe_gemm(x, w)
-                want = ref.ref_moe_gemm(x, w)
-                torch.cuda.synchronize()
-                name = f"moe_gemm[{dtype_name},C={c},{proj}]"
-                rtol, atol_frac = MG_TOL[dtype_name]
-                atol = atol_frac * float(want.float().square().mean().sqrt())
-                err = check_close(name, got, want, rtol, atol)
-                # the gate must see a kernel that skipped its last K tile or
-                # wrote a wrong edge of one F tile, at this dtype's kernel's
-                # tiles (bf16: 64 deep x 128 wide; f32: 32 x 64)
-                plan = launch_plan(e, c, din, w.shape[2], dtype)
-                bk, bf = plan.block_k, plan.block_f
-                wrong = {f"last {bk}-deep K tile dropped": ref.ref_moe_gemm(x[..., :-bk],
-                                                                           w[:, :-bk]),
-                         f"last {bf}-wide F tile zeroed": torch.cat(
-                             [want[..., :-bf], torch.zeros_like(want[..., -bf:])], -1)}
-                for fault, bad in wrong.items():
-                    if max_excess(bad, want, rtol, atol)[1] <= 0:
-                        raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
-                                             f"from the plain version")
-                ms = timer.ms(lambda: moe_gemm(x, w))
-                plain = timer.ms(lambda: ref.ref_moe_gemm(x, w))
-                lib = timer.ms(lambda: torch.bmm(x, w))
-                if dtype_name == "bfloat16":
-                    log(f"device time moe_gemm C={c} {proj}: kernel "
-                        f"[{timer.device_us(lambda: moe_gemm(x, w))}] torch.bmm "
-                        f"[{timer.device_us(lambda: torch.bmm(x, w))}]")
-                item = x.element_size()
-                dout = w.shape[2]
-                nbytes = (x.numel() + w.numel() + e * c * dout) * item
-                flops = 2 * e * c * din * dout
-                mg[(dtype_name, c, proj)] = dict(err=err, ms=ms, plain=plain, lib=lib,
-                                                 bound=_bound(nbytes, flops, dtype_name))
-                log(f"kernel moe_gemm dtype={dtype_name} C={c} {proj} "
-                    f"({e}x{c}x{din} @ {e}x{din}x{dout}; block C {plan.block_c}, grid "
-                    f"{plan.grid}, smem {plan.smem} B): max_abs_err={err:.3e} "
-                    f"(rtol {rtol}, atol {atol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
-                    f"library_ms(torch.bmm)={lib:.4f} "
-                    f"bound_ms={mg[(dtype_name, c, proj)]['bound'][0]:.4f} "
-                    f"({mg[(dtype_name, c, proj)]['bound'][1]}) {_tb_s(nbytes, ms)} "
-                    f"bmm_{_tb_s(nbytes, lib)}")
+                mg[(dtype_name, c, proj)] = _moe_gemm_case(
+                    torch, timer, x, w, dtype_name, f"C={c} {proj}")
         del w_up, w_down
     main = mg[("bfloat16", 8, "gate/up")]
     results["moe_gemm"] = dict(
@@ -288,7 +303,59 @@ def kernel_phase(torch, timer: Timer, cfg) -> dict:
     results["topk_router"] = router["topk_router"]
     for name, err in _family_decode_checks(torch, timer, gen).items():
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    for name, err in _variant_kernel_checks(torch, timer, gen).items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
     return results
+
+
+def _moe_gemm_case(torch, timer: Timer, x, w, dtype_name: str, label: str) -> dict:
+    """``moe_gemm(x, w)`` against its plain version under the rms-relative
+    gate, with the gate shown to reject a kernel that skipped its last K
+    tile or zeroed one F tile's edge at this dtype's tiles (bf16: 64 deep x
+    128 wide; f32: 32 x 64); timed beside the plain version and
+    ``torch.bmm`` (and, in bf16, their device time).  Returns err, ms,
+    plain, lib and bound."""
+    from repro_torch.kernels import moe_gemm, ref
+    from repro_torch.kernels.moe_gemm import launch_plan
+
+    e, c, din = x.shape
+    dout = w.shape[2]
+    got = moe_gemm(x, w)
+    want = ref.ref_moe_gemm(x, w)
+    torch.cuda.synchronize()
+    name = f"moe_gemm[{dtype_name},{label}]"
+    rtol, atol_frac = MG_TOL[dtype_name]
+    atol = atol_frac * float(want.float().square().mean().sqrt())
+    err = check_close(name, got, want, rtol, atol)
+    del got
+    plan = launch_plan(e, c, din, dout, x.dtype)
+    bk, bf = plan.block_k, plan.block_f
+    wrong = {f"last {bk}-deep K tile dropped": lambda: ref.ref_moe_gemm(x[..., :-bk],
+                                                                       w[:, :-bk]),
+             f"last {bf}-wide F tile zeroed": lambda: torch.cat(
+                 [want[..., :-bf], torch.zeros_like(want[..., -bf:])], -1)}
+    for fault, bad in wrong.items():
+        if max_excess(bad(), want, rtol, atol)[1] <= 0:
+            raise AssertionError(f"{name}: the tolerance cannot tell {fault!r} "
+                                 f"from the plain version")
+    del want
+    ms = timer.ms(lambda: moe_gemm(x, w))
+    plain = timer.ms(lambda: ref.ref_moe_gemm(x, w))
+    lib = timer.ms(lambda: torch.bmm(x, w))
+    if dtype_name == "bfloat16":
+        log(f"device time moe_gemm {label}: kernel "
+            f"[{timer.device_us(lambda: moe_gemm(x, w))}] torch.bmm "
+            f"[{timer.device_us(lambda: torch.bmm(x, w))}]")
+    item = x.element_size()
+    nbytes = (x.numel() + w.numel() + e * c * dout) * item
+    bound = _bound(nbytes, 2 * e * c * din * dout, dtype_name)
+    log(f"kernel moe_gemm dtype={dtype_name} {label} "
+        f"({e}x{c}x{din} @ {e}x{din}x{dout}; block C {plan.block_c}, grid "
+        f"{plan.grid}, smem {plan.smem} B): max_abs_err={err:.3e} "
+        f"(rtol {rtol}, atol {atol:.3e}) ms={ms:.4f} plain_ms={plain:.4f} "
+        f"library_ms(torch.bmm)={lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) "
+        f"{_tb_s(nbytes, ms)} bmm_{_tb_s(nbytes, lib)}")
+    return dict(err=err, ms=ms, plain=plain, lib=lib, bound=bound)
 
 
 def _paged_pool(torch, gen, b: int, nb: int, bs: int, hkv: int, d: int):
@@ -517,15 +584,18 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
         library_ms=main["lib"])}
 
 
-# (arch, positions a row) of the families phase's decode shapes: gemma2's
-# 8 / 4 heads x 256 with softcap 50 over its 4864-position runs past the
-# 4096 window, granite-20b's 48 query heads on one KV head over 1024
-FAMILY_SHAPES = (("gemma2-2b", 4864), ("granite-20b", 1024))
+# (arch, positions a row, kernel 1 too) of the families' and variants'
+# decode shapes: gemma2's 8 / 4 heads x 256 with softcap 50 over its
+# 4864-position runs past the 4096 window, granite-20b's 48 query heads on
+# one KV head over 1024, llama4's 40 / 8 heads x 128 over its slot runs'
+# 1024 (kernel 4 only: the paged layout rejects the interleaved stack)
+FAMILY_SHAPES = (("gemma2-2b", 4864, True), ("granite-20b", 1024, True),
+                 ("llama4-maverick-400b-a17b", 1024, False))
 
 
 def _family_decode_checks(torch, timer: Timer, gen) -> dict:
-    """Kernels 1 and 4 at the shapes the families phase gives them (B = 8,
-    16-position pages for kernel 1; bf16, and for gemma2 int8 pages too;
+    """Kernels 1 and 4 at the shapes the families and variants phases give
+    them (B = 8, 16-position pages for kernel 1; bf16, and for gemma2 int8 pages too;
     softcap 0 and the family's own), each against its plain version with
     the fault checks of the qwen3 shapes and timed as they are (CUDA events,
     and at softcap 0 the profiler's device time, which a loaded host does
@@ -549,7 +619,7 @@ def _family_decode_checks(torch, timer: Timer, gen) -> dict:
                                      f"from the plain version")
         return err
 
-    for arch, s in FAMILY_SHAPES:
+    for arch, s, paged in FAMILY_SHAPES:
         fc = get_config(arch)
         b, hq, hkv, d = 8, fc.num_heads, fc.num_kv_heads, fc.head_dim
         caps = sorted({0.0, fc.attn_logit_softcap})
@@ -561,7 +631,7 @@ def _family_decode_checks(torch, timer: Timer, gen) -> dict:
 
         bs, nb = 16, s // 16
         kp, vp, kq, vq, ksc, vsc, tables = _paged_pool(torch, gen, b, nb, bs, hkv, d)
-        kinds = [("bf16", (kp, vp, None, None))]
+        kinds = [("bf16", (kp, vp, None, None))] if paged else []
         if arch == "gemma2-2b":
             kinds.append(("int8", (kq, vq, ksc, vsc)))
         for pages, (kk, vv, ks, vs) in kinds:
@@ -637,6 +707,46 @@ def _family_decode_checks(torch, timer: Timer, gen) -> dict:
     return errs
 
 
+# the router's variant cases: decode and a 512-token bucket at the default
+# plans, and a forced plan of several CTAs and rounds
+VARIANT_ROUTER_CASES = ((8, None), (512, None), (600, dict(ctas=3, warps=5, per_warp=3)))
+# capacities of the variants' grouped GEMMs: decode (T = 8) and the largest a
+# 512-token prefill gives (deepseek: 1.25 * 6 * 512 / 160 + 1 -> 32)
+VARIANT_CAPACITIES = (8, 32)
+
+
+def _variant_kernel_checks(torch, timer: Timer, gen) -> dict:
+    """Kernels 2, 3 and 5 at the MoE variants' shapes, run before any model
+    is resident (the plain ``ref_moe_gemm`` upcasts llama4's 10.7 GB of
+    bf16 weights to 21.5 GB of f32): the router at deepseek-v2's E = 160,
+    k = 6 (five probabilities a lane) and llama4's E = 128, k = 1, with
+    identity and R = 8 replica tables and as kernel 5 (VARIANT_ROUTER_CASES);
+    ``moe_gemm`` in bf16 at (E, C, 5120) x (E, 5120, F) and (E, C, F) x
+    (E, F, 5120) for deepseek's E = 160, F = 1536 and llama4's E = 128,
+    F = 8192, C in VARIANT_CAPACITIES.  Returns each kernel's largest error."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import normal
+
+    errs = {"topk_router_replicated": 0.0, "topk_router": 0.0, "moe_gemm": 0.0}
+    for arch in (DEEPSEEK, LLAMA4):
+        vc = get_config(arch)
+        e, dm, f = vc.num_experts, vc.d_model, vc.moe_d_ff
+        router = _router_checks(torch, timer, vc, gen, cases=VARIANT_ROUTER_CASES,
+                                graph=False, tag=f"{arch},E={e},k={vc.moe_top_k},")
+        for name in ("topk_router_replicated", "topk_router"):
+            errs[name] = max(errs[name], router[name]["max_abs_err"])
+        for proj, din, dout in (("gate/up", dm, f), ("down", f, dm)):
+            # drawn a slice at a time: llama4's f32 transients would be 43 GB
+            w = normal(gen, (e, din, dout), din ** -0.5, torch.bfloat16)
+            for c in VARIANT_CAPACITIES:
+                x = torch.randn((e, c, din), generator=gen, device=DEVICE).to(torch.bfloat16)
+                row = _moe_gemm_case(torch, timer, x, w, "bfloat16", f"{arch} C={c} {proj}")
+                errs["moe_gemm"] = max(errs["moe_gemm"], row["err"])
+            del w, x
+            torch.cuda.empty_cache()
+    return errs
+
+
 # (T, route_plan overrides) of the router phase: default plans at decode
 # (one CTA), at 512 and 1024 (n = 4 and 8 CTAs, one round) and at 5000
 # tokens (two rounds), and two forced plans with many rounds and odd sizes
@@ -668,14 +778,17 @@ def _router_logits(torch, gen, t: int, e: int, kind: str):
     return x
 
 
-def _router_placement(torch, e: int, gen):
-    """Up to R = 8 replica slots (S = 136 at E = 128), shuffled: the first
-    hot expert in three slots, up to six experts other than the hot ones in
-    two, the second hot expert in one."""
+def _router_placement(torch, e: int, gen, k: int = 8):
+    """R = 8 replica slots (S = 136 at E = 128), shuffled: the first hot
+    expert in three slots (four where three divides k, since selection
+    t * k + j and selection j pick the same one of c copies when c divides
+    k), experts other than the hot ones in two, the second hot expert in
+    one."""
     from repro_torch.models.moe import ExpertPlacement
     hot = _router_hot(e)
-    others = [x for x in range(10, e, max(1, (e - 10) // 6)) if x not in hot][:6]
-    inv = torch.cat([torch.arange(e), torch.tensor([hot[0]] * 2 + others)])
+    extra = 2 if k % 3 else 3
+    others = [x for x in range(10, e, max(1, (e - 10) // 6)) if x not in hot][:8 - extra]
+    inv = torch.cat([torch.arange(e), torch.tensor([hot[0]] * extra + others)])
     inv = inv[torch.randperm(len(inv), generator=gen, device=DEVICE).cpu()]
     return ExpertPlacement.from_slot_map(inv.to(DEVICE), e, device=DEVICE)
 
@@ -700,19 +813,22 @@ def _router_faults(torch, ref, want, plc, plan, num_slots: int, k: int) -> dict:
     return wrong
 
 
-def _router_checks(torch, timer: Timer, cfg, gen) -> dict:
+def _router_checks(torch, timer: Timer, cfg, gen, cases=ROUTER_CASES, graph: bool = True,
+                   tag: str = "") -> dict:
     """Kernels 2 and 5 (one launch a call, one cluster) against their plain
     versions at every ROUTER_CASES plan: kernel 2 with identity tables (the
     paged path) and with R = 8 replica tables, kernel 5 (no tables); random,
     tied and skewed logits.  Gates within 1e-5, integers exact, the plain
     mirror of the cluster count equal to the plain positions, and on skewed
     logits each of ``_router_faults`` outside the gate wherever it can
-    differ (carry: rounds > 1; lower CTAs: n > 1; order: T > 1; replica
-    index: replica tables, T > 1).  The profiler shows one kernel launch a
-    call at every case.  At T = 8, 512 and 1024: timed ms, device us, host
-    us a call without a synchronize, beside ``launch_floor_ms`` (one
-    single-element ``zero_()`` under the same Timer).  Then one call
-    captured in a CUDA graph and replayed on new logits."""
+    differ (carry: rounds > 1; lower CTAs: n > 1; order: T > 1 and k > 1;
+    replica index: replica tables, T > 1).  The profiler shows one kernel
+    launch a call at every case.  At T = 8, 512 and 1024: timed ms, device
+    us, host us a call without a synchronize, beside ``launch_floor_ms``
+    (one single-element ``zero_()`` under the same Timer).  Then, with
+    ``graph``, one call captured in a CUDA graph and replayed on new
+    logits.  ``cases`` replaces ROUTER_CASES (the variants' shapes take
+    fewer); ``tag`` prefixes each case's name."""
     from repro_torch.kernels import ref, topk_router, topk_router_replicated
     from repro_torch.kernels.topk_router import route_plan
     from repro_torch.models.moe import ExpertPlacement
@@ -722,17 +838,18 @@ def _router_checks(torch, timer: Timer, cfg, gen) -> dict:
     floor = timer.ms(lambda: one.zero_())
     log(f"router launch_floor_ms={floor:.4f} (one single-element zero_())")
     placements = {"identity tables": ExpertPlacement.identity(e, device=DEVICE),
-                  "R=8": _router_placement(torch, e, gen), "kernel 5": None}
+                  "R=8": _router_placement(torch, e, gen, k), "kernel 5": None}
     rows, errs = {}, {name: [] for name in placements}
     shown = {name: 0 for name in ("carry dropped across rounds", "no lower-CTA sum",
                                   "selection-major order", "replica index from j")}
-    for t, over in ROUTER_CASES:
+    possible = dict.fromkeys(shown, False)
+    for t, over in cases:
         for tables, plc in placements.items():
             s = e if plc is None else plc.num_slots
             plan = route_plan(t, e, k, s, **(over or {}))
             kw = dict(plan=plan) if over else {}
             for kind in ("random", "tied", "skewed"):
-                name = f"router[T={t},{tables},{kind},plan={tuple(plan[:4])}]"
+                name = f"router[{tag}T={t},{tables},{kind},plan={tuple(plan[:4])}]"
                 logits = _router_logits(torch, gen, t, e, kind)
                 if plc is None:
                     def call():
@@ -765,9 +882,10 @@ def _router_checks(torch, timer: Timer, cfg, gen) -> dict:
                     faults = _router_faults(torch, ref, want, plc, plan, s, k)
                     can = {"carry dropped across rounds": plan.rounds > 1,
                            "no lower-CTA sum": plan.ctas > 1,
-                           "selection-major order": t > 1,
+                           "selection-major order": t > 1 and k > 1,
                            "replica index from j": s > e and t > 1}
                     for fault, (fs, fp) in faults.items():
+                        possible[fault] |= can[fault]
                         outside = not (torch.equal(fs, want[1]) and torch.equal(fp, want[2]))
                         if can[fault] and not outside:
                             raise AssertionError(f"{name}: the gate cannot tell {fault!r} "
@@ -788,7 +906,7 @@ def _router_checks(torch, timer: Timer, cfg, gen) -> dict:
                         nbytes += (plc.replica_slots.numel() + e) * 4
                     row["bound"] = _bound(nbytes, 5 * t * e, "float32")
                     rows[(t, tables)] = row
-                    log(f"device time router T={t} {tables} plan={tuple(plan[:4])}: kernel "
+                    log(f"device time router {tag}T={t} {tables} plan={tuple(plan[:4])}: kernel "
                         f"[{timer.device_us(call)}] host_us_per_call={row['host_us']:.2f} "
                         f"launch_floor_ms={floor:.4f}")
                     line += (f" ms={row['ms']:.4f} ({row['ms'] / floor:.2f}x launch floor) "
@@ -797,10 +915,12 @@ def _router_checks(torch, timer: Timer, cfg, gen) -> dict:
                              f"{_tb_s(nbytes, row['ms'])}")
                 errs[tables].append(err)
                 log(line)
-    if not all(shown.values()):
-        raise AssertionError(f"router: a fault was never shown outside the gate: {shown}")
-    log(f"router faults outside the gate (skewed cases): {shown}")
-    _router_graph_check(torch, gen, placements["R=8"], e, k)
+    if not all(shown[fault] for fault, can in possible.items() if can):
+        raise AssertionError(f"router {tag}: a fault was never shown outside the gate: "
+                             f"{shown}")
+    log(f"router {tag}faults outside the gate (skewed cases): {shown}")
+    if graph:
+        _router_graph_check(torch, gen, placements["R=8"], e, k)
 
     def entry(tables, replaces, err):
         main = rows[(8, tables)]
@@ -931,12 +1051,17 @@ def _paged_step_vs_plain(torch, cfg32, params, label: str) -> None:
         f"prefill tokens equal {[int(x) for x in tk]}")
 
 
-def _replicated_slot_step(torch, cfg32, params) -> None:
-    """The slot layout under a replicated, non-identity placement: the
-    "eplb" solver's slot map for seeded skewed counts with R = 4 replica
-    slots (S = 132), the expert weights gathered into it by the backend's
-    ``apply_placement``, then one decode step through the router and
-    grouped-GEMM kernels against the plain gather path."""
+def _replicated_slot_step(torch, cfg32, params, label: str = "",
+                          replicate: bool = True) -> None:
+    """The slot layout, under a replicated, non-identity placement (with
+    ``replicate``): the "eplb" solver's slot map for seeded skewed counts
+    with R = 4 replica slots (S = E + 4), the expert weights gathered into
+    it by the backend's ``apply_placement``.  Three prompts prefilled, then
+    one decode step through the router and grouped-GEMM kernels against the
+    plain gather path: in f32 within ``TOL``, in bf16 within ``moe_gemm``'s
+    gate (``MG_TOL``, atol a fraction of the plain logits' rms).  An MLA
+    model's fused step is also taken with ``mla_absorb=True`` on a copy of
+    the cache and held to the naive one."""
     import numpy as np
     from repro_torch.core.eplb import ExpertRebalancer
     from repro_torch.core.placement import eplb_placement_rep
@@ -946,17 +1071,23 @@ def _replicated_slot_step(torch, cfg32, params) -> None:
     from repro_torch.serving.backend import TorchBackend
 
     e = cfg32.num_experts
-    counts = np.random.default_rng(SEED + 2).pareto(1.0, size=(cfg32.num_layers, e)) + 1.0
-    slot_map = eplb_placement_rep(counts, 4, 4)
-    plc = ExpertPlacement.from_slot_map(slot_map, e)
-    if len(slot_map) != e + 4 or int(plc.replica_count.max()) < 2 \
-            or np.array_equal(slot_map[:e], np.arange(e)):
-        raise AssertionError("reference: the slot map is not a replicated, non-identity one")
+    slot_map = plc = None
+    if replicate:
+        counts = np.random.default_rng(SEED + 2).pareto(1.0, size=(cfg32.num_layers, e)) + 1.0
+        slot_map = eplb_placement_rep(counts, 4, 4)
+        plc = ExpertPlacement.from_slot_map(slot_map, e)
+        if len(slot_map) != e + 4 or int(plc.replica_count.max()) < 2 \
+                or np.array_equal(slot_map[:e], np.arange(e)):
+            raise AssertionError(f"reference{label}: the slot map is not a replicated, "
+                                 "non-identity one")
     rng = torch.Generator().manual_seed(SEED + 3)
     outs = []
+    absorb_err = None
     for fused in (True, False):
-        rb = ExpertRebalancer(cfg32, 4, redundancy=4)
-        rb.slot_map = slot_map
+        rb = None
+        if replicate:
+            rb = ExpertRebalancer(cfg32, 4, redundancy=4)
+            rb.slot_map = slot_map
         be = TorchBackend(cfg32, params, max_slots=4, max_seq=256, kv_layout="slot",
                           dispatch_mode="fused" if fused else "gather", rebalancer=rb,
                           device=DEVICE)
@@ -964,25 +1095,42 @@ def _replicated_slot_step(torch, cfg32, params) -> None:
         for i, plen in enumerate((40, 97, 130)):
             toks = torch.randint(0, cfg32.vocab_size, (plen,), generator=rng).numpy()
             be.start(Request(i, plen, 4, 0.0, prompt_tokens=toks), 0.0)
-        if be.relocations != 1 or be.params["blocks"]["moe"]["w_gate"].shape[1] != e + 4:
-            raise AssertionError("reference: apply_placement did not gather 132 slots")
+        if replicate and (be.relocations != 1
+                          or be.params["blocks"]["moe"]["w_gate"].shape[1] != e + 4):
+            raise AssertionError(f"reference{label}: apply_placement did not gather "
+                                 f"{e + 4} slots")
         tokens = torch.as_tensor(be.slot_last_token.astype("int64"), device=DEVICE)[:, None]
+        kw = dict(placements=be._placements(), dispatch_mode=be.dispatch_mode)
         with torch.no_grad():
-            logits, _, _ = M.decode_step(
-                be.params, cfg32, tokens, be.kv.cache, be.kv.positions(),
-                placements=be._placements(), dispatch_mode=be.dispatch_mode)
+            if fused and cfg32.attention_type == "mla":
+                cache = copy.deepcopy(be.kv.cache)
+                absorbed, _, _ = M.decode_step(be.params, cfg32, tokens, cache,
+                                               be.kv.positions(), mla_absorb=True, **kw)
+                del cache
+            logits, _, _ = M.decode_step(be.params, cfg32, tokens, be.kv.cache,
+                                         be.kv.positions(), **kw)
         outs.append((logits[:3], be.slot_last_token[:3].copy()))
         del be
     torch.cuda.synchronize()
     (lk, tk), (lp, tp) = outs
-    err = check_close("decode_step f32 replicated placement, kernels vs plain",
-                      lk, lp, TOL["float32"])
+    if cfg32.dtype == "float32":
+        tol = (TOL["float32"], TOL["float32"])
+    else:
+        rtol, atol_frac = MG_TOL[cfg32.dtype]
+        tol = (rtol, atol_frac * float(lp.float().square().mean().sqrt()))
+    err = check_close(f"decode_step {cfg32.dtype}{label}, kernels vs plain", lk, lp, *tol)
+    if cfg32.attention_type == "mla":
+        absorb_err = check_close(f"decode_step {cfg32.dtype}{label} mla_absorb=True vs False",
+                                 absorbed[:3], lk, *tol)
     if list(tk) != list(tp):
         raise AssertionError(f"prefill greedy tokens differ: {tk} vs {tp}")
-    log(f"reference: f32 full-width slot decode step, replicated placement "
-        f"(S={len(slot_map)}, max copies {int(plc.replica_count.max())}), kernels vs plain "
-        f"path: max_abs_err={err:.3e} (tol {TOL['float32']}), prefill tokens equal "
-        f"{[int(x) for x in tk]}")
+    placement = (f"replicated placement (S={len(slot_map)}, max copies "
+                 f"{int(plc.replica_count.max())})" if replicate else "identity placement")
+    log(f"reference{label}: {cfg32.dtype} full-width slot decode step, {placement}, "
+        f"kernels vs plain path: max_abs_err={err:.3e} (rtol {tol[0]}, atol {tol[1]:.3e}), "
+        + ("" if absorb_err is None else
+           f"mla_absorb=True vs False max_abs_err={absorb_err:.3e} (same gate), ")
+        + f"prefill tokens equal {[int(x) for x in tk]}")
 
 
 # ----------------------------------------------------------------------------- engine
@@ -1088,7 +1236,10 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
         f"{eng.max_slots} rows) scheduler_and_rest_s="
         f"{wall - secs['start'] - secs['decode']:.4f}")
     if prof is not None:
-        _check_router_trace(_report_trace(prof, wall, label), launches, label)
+        rows = _report_trace(prof, wall, label)
+        if not rows:
+            raise EmptyTrace(f"trace[{label}]: the profiler recorded no device event")
+        _check_router_trace(rows, launches, label)
     if len(done) != len(reqs):
         raise AssertionError(f"engine[{label}]: only {len(done)}/{len(reqs)} finished")
     if not seen["finite"]:
@@ -1137,29 +1288,44 @@ def _n_global(cfg) -> int:
     return sum(not cfg.layer_is_local(i) for i in range(cfg.num_layers))
 
 
-def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
-               label: str = "slot+gimbal+rep", trace: bool = False) -> dict:
-    """Serve ``n_req`` requests on the slot layout with the "gimbal+rep"
-    expert level (tau = 8 engine steps, 4 expert devices, so R = 4 replica
-    slots and S = 132): the level observes the routed expert ids, rebalances
-    mid-run, and the backend gathers the weights into each new slot map.
+def _first_kv(cfg, cache):
+    """Layer 0's K and V of a GQA slot cache (an interleaved stack's first
+    MoE layer), or None for MLA's compressed cache."""
+    if cfg.attention_type != "gqa":
+        return None
+    layers = cache["layers"]
+    if "moe" in layers:
+        layers = layers["moe"]
+    return layers["k"][0], layers["v"][0]
 
-    Checks that every request finished with finite logits, that experts
-    were relocated into a replicated slot map, that the router kernel
-    received non-identity replica tables, and that launch counts equal the
-    path's.  Every 8th decode step, right after it is enqueued, the slot
-    flash-decode kernel runs through ``ops.decode_attention`` on layer 0 of
-    the live cache (lengths = resident tokens, 0 for free slots) and the
-    identity router kernel through ``ops.route`` on the step's router
-    logits; each is held against its plain version there.  ``trace`` as in
-    ``engine_run``."""
+
+def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
+               label: str = "slot+gimbal+rep", trace: bool = False,
+               variant: str = "gimbal+rep") -> dict:
+    """Serve ``n_req`` requests on the slot layout with the ``variant``
+    expert level (tau = 8 engine steps, 4 expert devices).  Under
+    "gimbal+rep" (R = 4 replica slots, S = E + 4) the level observes the
+    routed expert ids, rebalances mid-run, and the backend gathers the
+    weights into each new slot map; under "vllm" the placement never moves.
+
+    Checks that every request finished with finite logits, that (under
+    "gimbal+rep") experts were relocated into a replicated slot map and the
+    router kernel received non-identity replica tables, or (under "vllm")
+    nothing was relocated, and that launch counts equal the path's.  Every
+    8th decode step, right after it is enqueued, the slot flash-decode
+    kernel runs through ``ops.decode_attention`` on layer 0 of the live
+    cache (lengths = resident tokens, 0 for free slots; GQA caches only)
+    and the identity router kernel through ``ops.route`` on the step's
+    router logits; each is held against its plain version there.  Counts
+    the physical slots no row reached in each decode-step (T = max_slots)
+    routing.  ``trace`` as in ``engine_run``."""
     import numpy as np
     from repro_torch.core.types import GimbalConfig
     from repro_torch.kernels import ops, ref
     from repro_torch.models import moe as moe_lib
     from repro_torch.serving.engine import Engine
 
-    eng = Engine(0, cfg, params, variant="gimbal+rep", gimbal_cfg=GimbalConfig(tau=8),
+    eng = Engine(0, cfg, params, variant=variant, gimbal_cfg=GimbalConfig(tau=8),
                  num_expert_devices=4, kv_layout="slot", dispatch_mode="fused",
                  use_kernels=True, max_slots=8, max_seq=1024, prefill_budget=512,
                  device=DEVICE)
@@ -1177,8 +1343,8 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
     level.observe = timed("observe", level.observe)
     level.tick = timed("tick", level.tick)
 
-    tables = {"non_identity": 0, "calls": 0, "checks": 0, "last_logits": None,
-              "last_out": None}
+    tables = {"non_identity": 0, "calls": 0, "checks": 0, "fd_checks": 0,
+              "last_logits": None, "last_out": None, "decode_slots": []}
     orig_route = moe_lib.route_replicated
 
     def route(logits, k, replica_slots, replica_count, num_slots):
@@ -1189,6 +1355,8 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
             tables["non_identity"] += 1
         out = orig_route(logits, k, replica_slots, replica_count, num_slots)
         tables["last_logits"], tables["last_out"] = logits, out
+        if logits.shape[0] == eng.max_slots:          # a decode step's T rows
+            tables["decode_slots"].append((out[2], num_slots))
         return out
 
     gen = torch.Generator(device=DEVICE)
@@ -1198,17 +1366,19 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
     def check_live(eng):
         """Kernels 4 and 5 on the path's own data, every 8th decode step."""
         if tables["checks"] % 8 == 0:
-            cache = eng.kv.cache["layers"]
-            lengths = torch.as_tensor(eng.kv.slot_len, dtype=torch.int32, device=DEVICE)
-            q = torch.randn((eng.max_slots, cfg.num_heads, cfg.head_dim), generator=gen,
-                            device=DEVICE).to(cfg.adtype)
-            got = ops.decode_attention(q, cache["k"][0], cache["v"][0], lengths)
-            want = ref.ref_flash_decode(q, cache["k"][0], cache["v"][0], lengths)
-            fd_err[0] = max(fd_err[0], check_close(
-                "flash_decode on the live slot cache", got, want, *FD_TOL[cfg.dtype]))
-            if not (got[lengths == 0] == 0).all():
-                raise AssertionError("flash_decode: a free slot's row is not exactly zero")
-            logits = tables["last_logits"]          # the step's last layer
+            kv = _first_kv(cfg, eng.kv.cache)
+            if kv is not None:
+                lengths = torch.as_tensor(eng.kv.slot_len, dtype=torch.int32, device=DEVICE)
+                q = torch.randn((eng.max_slots, cfg.num_heads, cfg.head_dim), generator=gen,
+                                device=DEVICE).to(cfg.adtype)
+                got = ops.decode_attention(q, kv[0], kv[1], lengths)
+                want = ref.ref_flash_decode(q, kv[0], kv[1], lengths)
+                fd_err[0] = max(fd_err[0], check_close(
+                    "flash_decode on the live slot cache", got, want, *FD_TOL[cfg.dtype]))
+                if not (got[lengths == 0] == 0).all():
+                    raise AssertionError("flash_decode: a free slot's row is not exactly zero")
+                tables["fd_checks"] += 1
+            logits = tables["last_logits"]          # the step's last MoE layer
             gates, ids, pos = ops.route(logits, cfg.moe_top_k)
             want = ref.ref_topk_router(logits, cfg.moe_top_k)
             check_close("topk_router on the step's router logits", gates, want[0], 1e-5)
@@ -1223,29 +1393,40 @@ def gimbal_run(torch, cfg, params, *, n_req: int, max_new: int,
                      trace=trace, after_decode=check_live)
     finally:
         moe_lib.route_replicated = orig_route
-    slot_map = np.asarray(level.slot_map)
+    slot_map = None if level.slot_map is None else np.asarray(level.slot_map)
     copies = int(level.placement().replica_count.max())
     n_checks = -(-tables["checks"] // 8)
+    empty = [n - int(torch.unique(sl).numel()) for sl, n in tables["decode_slots"]]
     log(f"engine[{label}]: relocations={eng.relocations} "
-        f"rebalances={level.migrations} slots={len(slot_map)} max_copies={copies} "
+        f"rebalances={level.migrations} slots={cfg.num_experts if slot_map is None else len(slot_map)} "
+        f"max_copies={copies} "
         f"router_calls_with_replica_tables={tables['non_identity']}/{tables['calls']} "
-        f"live_checks={n_checks} flash_decode_live_max_abs_err={fd_err[0]:.3e} "
+        f"live_checks={n_checks} flash_decode_live_checks={tables['fd_checks']} "
+        f"flash_decode_live_max_abs_err={fd_err[0]:.3e} "
         f"host_observe_s={host['observe']:.4f} host_tick_s={host['tick']:.4f} "
         f"moe_mult={level.moe_mult:.4f} cross_frac={level.cross_frac:.4f}")
+    if empty:
+        log(f"engine[{label}]: slots no row reached at T={eng.max_slots} (k={cfg.moe_top_k}), "
+            f"over {len(empty)} decode-step routings: mean={statistics.mean(empty):.2f} "
+            f"min={min(empty)} max={max(empty)} of {tables['decode_slots'][-1][1]} slots")
     for ev in level.events:
         log(f"engine[{label}] rebalance: step={ev.step} moved_experts="
             f"{ev.moved_experts} bytes_moved={ev.bytes_moved} imbalance "
             f"{ev.imbalance_before:.4f} -> {ev.imbalance_after:.4f} cut "
             f"{ev.cut_before:.1f} -> {ev.cut_after:.1f}")
-    if eng.relocations < 1:
-        raise AssertionError(f"engine[{label}]: no relocation fired")
-    if len(slot_map) != cfg.num_experts + 4 or copies < 2:
-        raise AssertionError(f"engine[{label}]: slot map of {len(slot_map)} slots, "
-                             f"at most {copies} copies of an expert")
-    if tables["non_identity"] < 1:
-        raise AssertionError(f"engine[{label}]: the router never received "
-                             "replica tables")
-    want = dict(run["path"], flash_decode_paged=0, flash_decode=n_checks,
+    if variant == "gimbal+rep":
+        if eng.relocations < 1:
+            raise AssertionError(f"engine[{label}]: no relocation fired")
+        if slot_map is None or len(slot_map) != cfg.num_experts + 4 or copies < 2:
+            raise AssertionError(f"engine[{label}]: slot map {slot_map}, at most {copies} "
+                                 f"copies of an expert")
+        if tables["non_identity"] < 1:
+            raise AssertionError(f"engine[{label}]: the router never received "
+                                 "replica tables")
+    elif eng.relocations or tables["non_identity"]:
+        raise AssertionError(f"engine[{label}]: {variant} relocated experts "
+                             f"({eng.relocations}) or replicated them")
+    want = dict(run["path"], flash_decode_paged=0, flash_decode=tables["fd_checks"],
                 topk_router=n_checks)
     if run["launches"] != want:
         raise AssertionError(f"engine[{label}]: launches {run['launches']} "
@@ -1565,12 +1746,25 @@ def _family_params(torch, cfg, label: str):
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
+    extra = ""
+    if cfg.is_moe:
+        extra += (f" experts={cfg.num_experts} top{cfg.moe_top_k} shared="
+                  f"{cfg.num_shared_experts} moe_d_ff={cfg.moe_d_ff} moe_layers="
+                  f"{cfg.num_moe_layers()} first_k_dense={cfg.first_k_dense} "
+                  f"moe_every={cfg.moe_every}")
+    if cfg.attention_type == "mla":
+        extra += (f" mla q/kv ranks={cfg.q_lora_rank}/{cfg.kv_lora_rank} "
+                  f"nope/rope/v={cfg.qk_nope_head_dim}/{cfg.qk_rope_head_dim}/{cfg.v_head_dim}")
+    if cfg.is_encoder_decoder:
+        extra += (f" encoder_layers={cfg.num_encoder_layers} "
+                  f"encoder_len={cfg.encoder_len}")
     log(f"family[{label}]: {cfg.num_layers} layers, d_model={cfg.d_model} heads="
         f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} qkv_bias={cfg.qkv_bias} softcaps={cfg.attn_logit_softcap}/"
         f"{cfg.final_logit_softcap} window={cfg.sliding_window} global_layers="
-        f"{_n_global(cfg)}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
-        f"parameters, init {time.perf_counter() - t0:.3f} s")
+        f"{_n_global(cfg)}{extra}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
+        f"parameters, init {time.perf_counter() - t0:.3f} s, device memory "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return params
 
 
@@ -1698,8 +1892,8 @@ def families_phase(torch) -> dict:
         max_slots=2, max_seq=4864, prefill_budget=4864)
     # a short traced window: the profiler's own processing grows with the
     # events of 26 layers a step
-    runs["gemma2-2b traced"] = _family_engine(torch, cfg, params, "gemma2-2b traced",
-                                              _requests(cfg, 4, 8), trace=True)
+    runs["gemma2-2b traced"] = _retraced(lambda **kw: _family_engine(
+        torch, cfg, params, "gemma2-2b traced", _requests(cfg, 4, 8), **kw))
     del params
     for arch, depth in FAMILY_DEPTHS:
         cfg = get_config(arch).replace(num_layers=depth)
@@ -1712,6 +1906,144 @@ def families_phase(torch) -> dict:
     del params
     _free(torch)
     log(f"families phase: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# ----------------------------------------------------------------------------- variants
+
+DEEPSEEK, LLAMA4, WHISPER = ("deepseek-v2-236b", "llama4-maverick-400b-a17b",
+                             "whisper-medium")
+# (arch, layers kept) of the variants phase: full width, depth cut because
+# 60 / 48 layers are ~472 / ~800 GB of bf16 weights (one llama4 MoE layer
+# holds 32.2 GB of experts, deepseek's 7.55 GB); depth changes no kernel
+# shape.  deepseek keeps its dense prologue layer and 3 MoE layers, llama4
+# one super-block (1 MoE + 1 dense layer)
+VARIANT_DEPTHS = ((DEEPSEEK, 4), (LLAMA4, 2))
+
+
+def _slot_engine(torch, cfg, params, label: str, variant: str, **kw) -> dict:
+    """One slot-layout ``gimbal_run`` with its peak device memory."""
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    run = gimbal_run(torch, cfg, params, label=label, variant=variant, **kw)
+    log(f"engine[{label}]: peak_device_memory_gib="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return run["launches"]
+
+
+def _whisper_run(torch, cfg, params, label: str) -> dict:
+    """whisper at full depth through the model entry points (the reference
+    ``Engine`` passes no frames): seeded (8, enc_len, d) frame embeddings
+    stand in for the stub frontend; each row's prompt of 16-64 tokens is
+    prefilled with its frames (encoder, then decoder) into a slot cache with
+    its encoder memory, then 32 slot ``decode_step``s of all rows.  Logits
+    must be finite and of the expected shapes, and no kernel launches (the
+    encoder-decoder path is plain PyTorch, as in the reference)."""
+    import numpy as np
+    from repro_torch import kernels as K
+    from repro_torch.models import model as M
+    from repro_torch.serving.kvcache import SlotKVCache, write_slot
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 6)
+    rng = np.random.default_rng(SEED)
+    n_rows, max_seq, steps = 8, 128, 32
+    frames = torch.randn((n_rows, cfg.encoder_len, cfg.d_model), generator=gen, device=DEVICE)
+    plens = [int(x) for x in rng.integers(16, 65, n_rows)]
+    kv = SlotKVCache(cfg, n_rows, max_seq, device=DEVICE)
+    tokens = torch.zeros((n_rows, 1), dtype=torch.long, device=DEVICE)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for row, plen in enumerate(plens):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, plen)), device=DEVICE)
+            cache = M.init_cache(cfg, 1, plen, device=DEVICE)
+            logits, cache, _ = M.prefill(params, cfg, toks, cache, frames=frames[row:row + 1])
+            if tuple(logits.shape) != (1, plen, cfg.vocab_size) \
+                    or tuple(cache["memory"].shape) != (1, cfg.encoder_len, cfg.d_model) \
+                    or not bool(logits.isfinite().all()):
+                raise AssertionError(f"whisper[{label}]: prefill logits {tuple(logits.shape)} "
+                                     "or memory not of the expected shape, or not finite")
+            slot = kv.alloc()
+            write_slot(kv.cache, cache, slot, kv.write_axes)
+            kv.slot_len[slot] = plen
+            tokens[slot, 0] = int(torch.argmax(logits[0, -1]))
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            logits, _, _ = M.decode_step(params, cfg, tokens, kv.cache, kv.positions())
+            if tuple(logits.shape) != (n_rows, cfg.vocab_size) \
+                    or not bool(logits.isfinite().all()):
+                raise AssertionError(f"whisper[{label}]: decode logits "
+                                     f"{tuple(logits.shape)} or not finite")
+            tokens = torch.argmax(logits, -1)[:, None]
+            kv.slot_len += 1
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t1
+    launches = {fn.__name__: fn.launches for fn in K.KERNELS}
+    if any(launches.values()):
+        raise AssertionError(f"whisper[{label}]: the plain path launched {launches}")
+    log(f"whisper[{label}]: rows={n_rows} frames={tuple(frames.shape)} prompt_tokens={plens} "
+        f"resident={kv.slot_len.tolist()} prefill_s={t_prefill:.3f} "
+        f"({1e3 * t_prefill / n_rows:.3f} ms a row: encoder + decoder) decode_steps={steps} "
+        f"ms_per_decode_step={1e3 * t_decode / steps:.3f} generated_tokens_per_s="
+        f"{steps * n_rows / t_decode:.2f} wall_s={t_prefill + t_decode:.3f} "
+        f"launches={launches} peak_device_memory_gib="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return launches
+
+
+def variants_phase(torch) -> dict:
+    """The MoE variants and the encoder-decoder at full width, random bf16
+    weights from seed 0, each model freed before the next: deepseek-v2 (an
+    f32 decode step of 2 layers, 1 dense + 1 MoE, under a replicated
+    placement, kernels against the plain path and MLA absorbed against
+    naive; then an ``Engine`` run at 4 layers under "gimbal+rep" and a short
+    traced one), llama4 at 2 layers (one bf16 decode step, kernels against
+    the plain path; then an ``Engine`` run under "vllm", kernel 4 checked on
+    its slot cache, and a short traced one), whisper-medium at full depth
+    (``prefill(frames=)`` and 32 decode steps).  Returns each run's kernel
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    _free(torch)
+    log(f"variants phase: device memory held on entry "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    runs = {}
+    depth = dict(VARIANT_DEPTHS)
+    cfg = get_config(DEEPSEEK)
+    cfg32 = cfg.replace(num_layers=2, dtype="float32")
+    params = M.init_params(cfg32, seed=SEED + 1, device=DEVICE)
+    _replicated_slot_step(torch, cfg32, params, f"[{DEEPSEEK}, 2 layers]")
+    del params
+    _free(torch)
+    for arch, variant in ((DEEPSEEK, "gimbal+rep"), (LLAMA4, "vllm")):
+        cfg = get_config(arch).replace(num_layers=depth[arch])
+        log(f"variant[{arch}]: reduced: num_layers {get_config(arch).num_layers} -> "
+            f"{depth[arch]}")
+        params = _family_params(torch, cfg, arch)
+        if arch == LLAMA4:
+            _replicated_slot_step(torch, cfg, params, f"[{arch}, {depth[arch]} layers]",
+                                  replicate=False)
+        runs[arch] = _slot_engine(torch, cfg, params, f"{arch} slot+{variant}", variant,
+                                  n_req=16, max_new=32)
+        runs[f"{arch} traced"] = _retraced(lambda **kw: _slot_engine(
+            torch, cfg, params, f"{arch} slot+{variant} traced", variant, n_req=8,
+            max_new=16, **kw))
+        del params
+        _free(torch)
+    cfg = get_config(WHISPER)
+    params = _family_params(torch, cfg, WHISPER)
+    runs[WHISPER] = _whisper_run(torch, cfg, params, WHISPER)
+    del params
+    _free(torch)
+    log(f"variants phase: {time.perf_counter() - t0:.1f} s")
     return runs
 
 
@@ -1745,6 +2077,10 @@ def _report_trace(prof, wall_s: float, label: str) -> list:
              if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                            "cudaMemcpyAsync")}
     log(f"trace[{label}]: host runtime calls {waits}")
+    gemm_ms = sum(us for us, _, key in rows if "tc_gemm_kernel" in key) / 1e3
+    if gemm_ms:
+        log(f"trace[{label}]: moe_gemm (tc_gemm_kernel) {gemm_ms:.3f} ms of "
+            f"{busy_ms:.3f} ms device busy, share={gemm_ms / busy_ms:.4f}")
     ranked = sorted(rows, reverse=True)
     for i, (us, count, key) in enumerate(ranked):
         # the ten largest rows, and the decode-attention and router kernels
@@ -1810,16 +2146,17 @@ def main() -> int:
     main_run = engine_run(torch, cfg, params, n_req=16, max_new=32, kv_quant=None,
                           label="bf16")
     engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant="int8", label="int8 KV")
-    engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant=None, label="bf16 traced",
-               trace=True)
+    _retraced(lambda **kw: engine_run(torch, cfg, params, n_req=8, max_new=16, kv_quant=None,
+                                      label="bf16 traced", **kw))
     slot_run = gimbal_run(torch, cfg, params, n_req=16, max_new=32)
-    gimbal_run(torch, cfg, params, n_req=8, max_new=16, label="slot+gimbal+rep traced",
-               trace=True)
+    _retraced(lambda **kw: gimbal_run(torch, cfg, params, n_req=8, max_new=16,
+                                      label="slot+gimbal+rep traced", **kw))
     cluster = cluster_phase(torch, cfg, params)
     log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del params
     torch.cuda.empty_cache()
     families = families_phase(torch)
+    variants = variants_phase(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1837,7 +2174,8 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "cluster_launches": {run: n[name] for run, n in cluster.items()},
-                     "families_launches": {run: n[name] for run, n in families.items()}})
+                     "families_launches": {run: n[name] for run, n in families.items()},
+                     "variants_launches": {run: n[name] for run, n in variants.items()}})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
@@ -1847,7 +2185,9 @@ def main() -> int:
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree

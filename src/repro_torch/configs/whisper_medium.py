@@ -3,8 +3,7 @@
 24L (decoder) + 24L encoder, d_model=1024 16H (kv=16) d_ff=4096 vocab=51865.
 The conv audio frontend is a stub that provides precomputed frame embeddings
 (B, frames, d_model); encoder memory is the fixed 1500-frame layout of 30 s
-audio.  The port registers the config for the cost model; the encoder-decoder
-stack waits for its slice.
+audio (``models.model.prefill(frames=)``).
 """
 from repro_torch.models.config import ModelConfig
 

@@ -1,4 +1,4 @@
-"""GQA attention, ported from ``repro.models.attention``.
+"""GQA, cross and MLA attention, ported from ``repro.models.attention``.
 
 * Full-sequence call (prefill): q over the whole sequence, causal mask;
   plain PyTorch (einsum + softmax, chunked over queries for long inputs),
@@ -9,11 +9,18 @@
 * Paged decode call: one new token per row appended into a paged KV pool
   (``serving.kvcache.PagedKVCache``), then paged flash-decode.
 
+* Cross attention (whisper's decoder): queries over the encoder memory,
+  no mask, no rope.
+* MLA (deepseek-v2): a compressed cache {"ckv": (B,S,R), "krope": (B,S,Dr)};
+  prefill decompresses and attends, decode either decompresses every
+  cached step (``absorb=False``) or scores in latent space
+  (``absorb=True``).  Plain PyTorch, as the reference computes it.
+
 Conventions kept from the reference: the finite ``NEG_INF`` mask, the
 ``CHUNK_THRESHOLD`` / ``Q_CHUNK`` switch to chunked prefill, the kernel
 called with ``lengths + 1`` after the append, and the monotone int8 page
-scale.  MLA, sliding-window decode and the sequence-sharded paths are later
-slices.
+scale.  The sequence-sharded decode branches (GQA and MLA) wait for the
+sharding slice (ROADMAP.md, Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, normal, softcap
+from repro_torch.models.layers import apply_rope, normal, rms_norm, softcap
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free in bf16
 
@@ -253,3 +260,152 @@ def gqa_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dic
         out = _sdpa(cfg, q, kb.to(q.dtype), vb.to(q.dtype), mask[:, None, :])
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return out, cache
+
+
+# =============================================================================
+# Cross attention (whisper decoder)
+# =============================================================================
+
+def cross_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                    memory: torch.Tensor) -> torch.Tensor:
+    """x: (B,Sq,d) queries; memory: (B,Skv,d) encoder output.  No mask, no rope."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    k = torch.einsum("bsd,dhk->bshk", memory, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, params["wv"])
+    mask = torch.ones((1, q.shape[1], k.shape[1]), dtype=torch.bool, device=x.device)
+    out = _sdpa(cfg, q, k, v, mask)
+    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+
+
+# =============================================================================
+# MLA (deepseek-v2)
+# =============================================================================
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    d, h = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    s = d ** -0.5
+    dt = cfg.adtype
+    p = {
+        "wkv_a": normal(gen, (d, r_kv + dr), s, dt),
+        "kv_norm": torch.zeros((r_kv,), dtype=dt, device=gen.device),
+        "wkv_b": normal(gen, (r_kv, h, dn + dv), r_kv ** -0.5, dt),
+        "wo": normal(gen, (h, dv, d), (h * dv) ** -0.5, dt),
+    }
+    if r_q > 0:
+        p["wq_a"] = normal(gen, (d, r_q), s, dt)
+        p["q_norm"] = torch.zeros((r_q,), dtype=dt, device=gen.device)
+        p["wq_b"] = normal(gen, (r_q, h, dn + dr), r_q ** -0.5, dt)
+    else:
+        p["wq"] = normal(gen, (d, h, dn + dr), s, dt)
+    return p
+
+
+def _mla_q(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    dn = cfg.qk_nope_head_dim
+    if cfg.q_lora_rank > 0:
+        cq = rms_norm(torch.einsum("bsd,dr->bsr", x, params["wq_a"]), params["q_norm"],
+                      cfg.norm_eps)
+        q = torch.einsum("bsr,rhk->bshk", cq, params["wq_b"])
+    else:
+        q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor):
+    """The compressed cache entries of x: (ckv (B,S,R) normed, krope (B,S,Dr)
+    roped with a singleton head axis)."""
+    r_kv = cfg.kv_lora_rank
+    kv = torch.einsum("bsd,dr->bsr", x, params["wkv_a"])
+    ckv = rms_norm(kv[..., :r_kv], params["kv_norm"], cfg.norm_eps)
+    krope = apply_rope(kv[..., None, r_kv:], positions, cfg.rope_theta)[..., 0, :]
+    return ckv, krope
+
+
+def mla_full(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.Tensor,
+             cache: Optional[dict] = None):
+    """Naive (paper-faithful) MLA for prefill: decompress, then attend with
+    q/k of head dim dn + dr and v of dv.  The given cache is written in
+    place at positions [0, S)."""
+    dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv, krope = _mla_ckv(params, cfg, x, positions)
+    if cache is not None:
+        s = ckv.shape[1]
+        cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
+        cache["krope"][:, :s] = krope.to(cache["krope"].dtype)
+    kv = torch.einsum("bsr,rhk->bshk", ckv, params["wkv_b"])
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(*krope.shape[:2], cfg.num_heads,
+                                                        krope.shape[-1])], dim=-1)
+    out = _sdpa_auto(cfg, q, k, v, 0, causal=True)
+    out = torch.einsum("bshk,hkd->bsd", out[..., :dv], params["wo"])
+    return out, cache
+
+
+def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               cache_pos: torch.Tensor, absorb: bool = False):
+    """One-token MLA decode against one layer's COMPRESSED slot cache,
+    written IN PLACE at ``cache_pos``.
+
+    absorb=False: paper-faithful, decompress every cached step, then attend.
+    absorb=True: weight-absorbed, scores in latent space; never builds
+    per-head K/V for the cache."""
+    dn = cfg.qk_nope_head_dim
+    q_nope, q_rope = _mla_q(params, cfg, x, cache_pos[:, None])
+    ckv_new, krope_new = _mla_ckv(params, cfg, x, cache_pos[:, None])
+    pos = cache_pos.long()
+    rows = torch.arange(x.shape[0], device=x.device)
+    cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
+
+    s_max = cache["ckv"].shape[1]
+    masked = (torch.arange(s_max, device=x.device)[None, :] > pos[:, None])[:, None, None]
+    scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+    ckv_c = cache["ckv"].to(x.dtype)
+    krope_c = cache["krope"].to(x.dtype)
+    if absorb:
+        wkb_k = params["wkv_b"][..., :dn]                         # (r, h, dn)
+        wkb_v = params["wkv_b"][..., dn:]                         # (r, h, dv)
+        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkb_k)     # (b,1,h,r)
+        scores = (torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
+                  + torch.einsum("bshk,btk->bhst", q_rope, krope_c)).float() * scale
+        w = torch.softmax(scores.masked_fill(masked, NEG_INF), dim=-1).to(x.dtype)
+        o_lat = torch.einsum("bhst,btr->bshr", w, ckv_c)          # (b,1,h,r)
+        out = torch.einsum("bshr,rhk->bshk", o_lat, wkb_v)        # (b,1,h,dv)
+    else:
+        kv = torch.einsum("btr,rhk->bthk", ckv_c, params["wkv_b"])  # every step
+        k_nope, v = kv[..., :dn], kv[..., dn:]
+        scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
+                  + torch.einsum("bshk,btk->bhst", q_rope, krope_c)).float() * scale
+        w = torch.softmax(scores.masked_fill(masked, NEG_INF), dim=-1).to(x.dtype)
+        out = torch.einsum("bhst,bthk->bshk", w, v)
+    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return out, cache
+
+
+# =============================================================================
+# Entry points used by blocks.py
+# =============================================================================
+
+def init_attention(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    if cfg.attention_type == "mla":
+        return init_mla(gen, cfg)
+    return init_gqa(gen, cfg)
+
+
+def attention_full(params: dict, cfg: ModelConfig, x, positions, local: bool,
+                   cache: Optional[dict] = None):
+    if cfg.attention_type == "mla":
+        return mla_full(params, cfg, x, positions, cache)
+    return gqa_full(params, cfg, x, positions, local, cache)
+
+
+def attention_decode(params: dict, cfg: ModelConfig, x, cache, cache_pos, local: bool,
+                     mla_absorb: bool = False):
+    if cfg.attention_type == "mla":
+        return mla_decode(params, cfg, x, cache, cache_pos, absorb=mla_absorb)
+    return gqa_decode(params, cfg, x, cache, cache_pos, local)

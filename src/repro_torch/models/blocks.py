@@ -1,8 +1,10 @@
-"""Per-layer decoder blocks, ported from ``repro.models.blocks`` for
-attention-mixer (GQA) layers: pre-norm -> attention -> residual -> pre-norm
--> FFN/MoE -> residual.  Block params are plain dicts; a stack of L layers
-is the same dict with a leading L axis (models/model.py).  Mamba, cross-
-attention and encoder blocks wait for their slices.
+"""Per-layer blocks, ported from ``repro.models.blocks`` for the attention
+families: pre-norm -> attention (GQA or MLA) -> residual -> pre-norm ->
+FFN/MoE -> residual; whisper's decoder block (self-attention, cross-
+attention over the encoder memory, FFN) and its non-causal encoder block.
+Block params are plain dicts; a stack of L layers is the same dict with a
+leading L axis (models/model.py).  Mamba blocks wait for their slice
+(ROADMAP.md, Queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool) -> di
     """An attention-mixer block; ``gen`` draws on the target device."""
     p = {
         "attn_norm": init_rms_norm(cfg.d_model, cfg.adtype, gen.device),
-        "attn": attn.init_gqa(gen, cfg),
+        "attn": attn.init_attention(gen, cfg),
         "ffn_norm": init_rms_norm(cfg.d_model, cfg.adtype, gen.device),
     }
     if is_moe_layer:
@@ -26,6 +28,19 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool) -> di
     else:
         p["ffn"] = init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.adtype)
     return p
+
+
+def init_cross_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Whisper decoder block: self-attention + cross-attention + FFN."""
+    dev = gen.device
+    return {
+        "attn_norm": init_rms_norm(cfg.d_model, cfg.adtype, dev),
+        "attn": attn.init_gqa(gen, cfg),
+        "cross_norm": init_rms_norm(cfg.d_model, cfg.adtype, dev),
+        "cross": attn.init_gqa(gen, cfg),
+        "ffn_norm": init_rms_norm(cfg.d_model, cfg.adtype, dev),
+        "ffn": init_ffn(gen, cfg.d_model, cfg.d_ff, cfg.adtype),
+    }
 
 
 def _ffn_half(p: dict, cfg: ModelConfig, x, is_moe_layer: bool, placement,
@@ -42,17 +57,18 @@ def _ffn_half(p: dict, cfg: ModelConfig, x, is_moe_layer: bool, placement,
 def attn_block_full(p: dict, cfg: ModelConfig, x, positions, is_local: bool, cache,
                     is_moe_layer: bool, placement, dispatch_mode: str, stats: bool):
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
-    a, new_cache = attn.gqa_full(p["attn"], cfg, h, positions, is_local, cache)
+    a, new_cache = attn.attention_full(p["attn"], cfg, h, positions, is_local, cache)
     x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
     return x, new_cache, aux
 
 
 def attn_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos,
                       is_local: bool, is_moe_layer: bool, placement,
-                      dispatch_mode: str, stats: bool):
+                      dispatch_mode: str, stats: bool, mla_absorb: bool = False):
     """One decode step of a block against one layer's slot cache."""
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
-    a, new_cache = attn.gqa_decode(p["attn"], cfg, h, cache, cache_pos, is_local)
+    a, new_cache = attn.attention_decode(p["attn"], cfg, h, cache, cache_pos, is_local,
+                                         mla_absorb=mla_absorb)
     x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
     return x, new_cache, aux
 
@@ -61,9 +77,45 @@ def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
                             lengths, is_local: bool, is_moe_layer: bool, placement,
                             dispatch_mode: str, stats: bool,
                             use_kernel: bool = False):
-    """One decode step of a block against one layer's paged KV pool."""
+    """One decode step of a block against one layer's paged KV pool (GQA
+    only: the paged layout rejects the other families up front)."""
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
     a, new_cache = attn.gqa_decode_paged(p["attn"], cfg, h, cache, block_tables,
                                          lengths, is_local, use_kernel)
     x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
     return x, new_cache, aux
+
+
+# --- whisper decoder block ----------------------------------------------------------
+
+def cross_block_full(p: dict, cfg: ModelConfig, x, positions, memory, cache):
+    h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
+    a, new_cache = attn.gqa_full(p["attn"], cfg, h, positions, False, cache)
+    x = x + a
+    h = rms_norm(x, p["cross_norm"]["scale"], cfg.norm_eps)
+    x = x + attn.cross_attention(p["cross"], cfg, h, memory)
+    h = rms_norm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
+    return x + ffn_apply(p["ffn"], h), new_cache
+
+
+def cross_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos, memory):
+    h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
+    a, new_cache = attn.gqa_decode(p["attn"], cfg, h, cache, cache_pos, False)
+    x = x + a
+    h = rms_norm(x, p["cross_norm"]["scale"], cfg.norm_eps)
+    x = x + attn.cross_attention(p["cross"], cfg, h, memory)
+    h = rms_norm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
+    return x + ffn_apply(p["ffn"], h), new_cache
+
+
+# --- whisper encoder block (non-causal, no rope) ---------------------------------------
+
+def encoder_block_full(p: dict, cfg: ModelConfig, x):
+    h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
+    q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wv"])
+    a = attn._sdpa_auto(cfg, q, k, v, 0, causal=False)
+    x = x + torch.einsum("bshk,hkd->bsd", a, p["attn"]["wo"])
+    h = rms_norm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
+    return x + ffn_apply(p["ffn"], h)

@@ -7,6 +7,8 @@ the optional softcap.  Parameters are plain dicts of tensors.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -52,9 +54,25 @@ def ffn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     return torch.einsum("...f,fd->...d", act, params["w_down"])
 
 
+# tensors of more elements are drawn one slice of the leading axis at a
+# time; every tensor of the homogeneous families (the largest, qwen2-72b's
+# embedding, has 1.25e9 elements) is drawn whole, as before
+CHUNKED_DRAW_ELEMENTS = 1 << 31
+
+
 def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    """Seeded N(0, std^2) draw on the generator's device, cast to ``dtype``."""
-    return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+    """Seeded N(0, std^2) draw on the generator's device, cast to ``dtype``.
+    Above ``CHUNKED_DRAW_ELEMENTS`` the tensor is allocated once and filled
+    a slice of the leading axis at a time, so the f32 transients are one
+    slice, not two copies of the whole tensor (one (128, 5120, 8192) expert
+    tensor of llama4 would need ~43 GB of them)."""
+    shape = tuple(shape)
+    if math.prod(shape) <= CHUNKED_DRAW_ELEMENTS:
+        return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    for i in range(shape[0]):
+        out[i] = torch.randn(shape[1:], generator=gen, device=gen.device) * std
+    return out
 
 
 def init_ffn(gen: torch.Generator, d: int, f: int, dtype) -> dict:

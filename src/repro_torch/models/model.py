@@ -1,20 +1,25 @@
-"""Language model of the port: init / prefill / slot and paged decode for
-homogeneous GQA stacks, ported from ``repro.models.model``: MoE (qwen3) and
-dense (gemma2's local/global alternation and softcaps, qwen2's QKV bias,
-granite's GQA and MQA), and a VLM's language model (internvl2), whose stub
-vision frontend's embeddings prefix the tokens at prefill.
+"""Language model of the port: init / prefill / slot and paged decode,
+ported from ``repro.models.model`` for the attention families: MoE (qwen3;
+deepseek-v2's dense prologue, shared experts and MLA; llama4's interleaved
+top-1 MoE), dense (gemma2's local/global alternation and softcaps, qwen2's
+QKV bias, granite's GQA and MQA), a VLM's language model (internvl2, whose
+stub vision frontend's embeddings prefix the tokens at prefill) and
+whisper's encoder-decoder (stub frame embeddings in, cross-attention over
+the encoder memory).
 
-Parameters keep the reference's stacked layout: ``params["blocks"]`` holds
-every layer's tensors with a leading L axis, so a layer is ``a[l]`` of every
-leaf and relocating experts is a gather on the expert axis.  A Python loop
-over layers replaces ``lax.scan``, so each layer's local/global flag is a
-Python bool and only its own attention branch runs (the reference's scan
-computes both branches and selects).  The other families (prologue /
-interleaved MoE, SSM, hybrid, MLA, encoder-decoder) are later slices.
+Parameters and caches keep the reference's trees: ``params["blocks"]``
+holds every scanned layer's tensors with a leading axis, so a layer is
+``a[l]`` of every leaf and relocating experts is a gather on the expert
+axis; ``params["prologue"]`` / ``cache["prologue"]`` are lists of per-layer
+trees; an interleaved stack groups ``{"moe": (n_super, ...), "dense":
+(n_super, moe_every - 1, ...)}``.  A Python loop over layers replaces
+``lax.scan``, so each layer's local/global flag is a Python bool and only
+its own attention branch runs (the reference's scan computes both branches
+and selects).  SSM and hybrid stacks are a later slice.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -27,19 +32,30 @@ from repro_torch.models.moe import ExpertPlacement
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.attention_type != "gqa" or cfg.is_ssm or cfg.is_hybrid
-            or cfg.is_encoder_decoder
-            or (cfg.is_moe and (cfg.first_k_dense != 0 or cfg.moe_every != 1))):
+    if cfg.is_ssm or cfg.is_hybrid:
         raise NotImplementedError(
-            f"{cfg.name}: the port runs homogeneous GQA stacks only so far; "
-            "first_k_dense / interleaved MoE, SSM and hybrid stacks, MLA and "
-            "encoder-decoder models wait for ROADMAP.md Queue 1 items 12-14")
+            f"{cfg.name}: SSM and hybrid stacks wait for ROADMAP.md Queue 1 item 13")
+
+
+def check_paged(cfg: ModelConfig) -> None:
+    """The paged KV layout takes homogeneous GQA stacks only (the
+    reference's ``PagedKVCache`` errors)."""
+    if (cfg.attention_type != "gqa" or cfg.is_ssm or cfg.is_hybrid
+            or cfg.is_encoder_decoder):
+        raise ValueError("PagedKVCache supports homogeneous GQA stacks only")
+    if cfg.is_moe and (cfg.first_k_dense != 0 or cfg.moe_every != 1):
+        raise ValueError("PagedKVCache requires a homogeneous layer stack "
+                         "(first_k_dense == 0, moe_every == 1)")
 
 
 def _stack(trees: List[Any]):
+    """Stack per-layer trees leaf by leaf, dropping each layer's leaf once it
+    is stacked, so the copy never holds more than one leaf twice."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
+    out = torch.stack(trees)
+    trees.clear()
+    return out
 
 
 def _layer(tree, l: int):
@@ -48,14 +64,23 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def _n_prologue(cfg: ModelConfig) -> int:
+    return cfg.first_k_dense if cfg.is_moe else 0
+
+
+def _interleaved(cfg: ModelConfig) -> bool:
+    return cfg.is_moe and cfg.moe_every > 1
+
+
 # =============================================================================
 # init
 # =============================================================================
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Seeded random parameters on ``device`` (the card by default), drawn
-    from the same distributions as the reference's init (not the same
-    numbers: bridge the reference's weights with ``models.convert``)."""
+    from the same distributions as the reference's init and laid out in its
+    tree (not the same numbers: bridge the reference's weights with
+    ``models.convert``)."""
     _check_supported(cfg)
     dev = devlib.resolve(device)
     gen = torch.Generator(device=dev)
@@ -65,8 +90,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
                             cfg.tie_embeddings),
         "final_norm": init_rms_norm(cfg.d_model, cfg.adtype, dev),
     }
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = _stack([B.init_block(gen, cfg, False)
+                                       for _ in range(cfg.num_encoder_layers)])
+        params["enc_final_norm"] = init_rms_norm(cfg.d_model, cfg.adtype, dev)
+        params["blocks"] = _stack([B.init_cross_block(gen, cfg)
+                                   for _ in range(cfg.num_layers)])
+        return params
+    n_pro = _n_prologue(cfg)
+    if n_pro:
+        params["prologue"] = [B.init_block(gen, cfg, False) for _ in range(n_pro)]
+    if _interleaved(cfg):
+        me = cfg.moe_every
+        n_super, rest = divmod(cfg.num_layers - n_pro, me)
+        if rest:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers - n_pro} layers do not "
+                             f"group evenly into super-blocks of {me}")
+        moe_b, dense_b = [], []
+        for _ in range(n_super):
+            moe_b.append(B.init_block(gen, cfg, True))
+            dense_b.append(_stack([B.init_block(gen, cfg, False) for _ in range(me - 1)]))
+        params["blocks"] = {"moe": _stack(moe_b), "dense": _stack(dense_b)}
+        return params
     params["blocks"] = _stack([B.init_block(gen, cfg, cfg.layer_is_moe(i))
-                               for i in range(cfg.num_layers)])
+                               for i in range(n_pro, cfg.num_layers)])
     return params
 
 
@@ -74,22 +121,56 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 # caches
 # =============================================================================
 
+def _map_shapes(fn, tree):
+    """Map ``fn`` over the shape tuples of a ``cache_shapes`` tree (dicts and
+    lists are nodes, tuples are leaves)."""
+    if isinstance(tree, dict):
+        return {k: _map_shapes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_shapes(fn, v) for v in tree]
+    return fn(tree)
+
+
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
-    """The shape of every leaf of ``init_cache``'s tree, allocating nothing."""
+    """The shape of every leaf of ``init_cache``'s tree, allocating nothing:
+    the same tree, with a shape tuple in place of each tensor."""
     _check_supported(cfg)
-    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-    return {"layers": {"k": shape, "v": shape}}
+    if cfg.is_encoder_decoder:
+        kv = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        return {"layers": {"k": kv, "v": kv},
+                "memory": (batch, cfg.encoder_len, cfg.d_model)}
+    if cfg.attention_type == "mla":
+        per = {"ckv": (batch, max_seq, cfg.kv_lora_rank),
+               "krope": (batch, max_seq, cfg.qk_rope_head_dim)}
+    else:
+        kv = (batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        per = {"k": kv, "v": kv}
+    n_pro = _n_prologue(cfg)
+    n_scan = cfg.num_layers - n_pro
+    if _interleaved(cfg):
+        me = cfg.moe_every
+        n_super = n_scan // me
+        layers = {"moe": _map_shapes(lambda s: (n_super,) + s, per),
+                  "dense": _map_shapes(lambda s: (n_super, me - 1) + s, per)}
+    else:
+        layers = _map_shapes(lambda s: (n_scan,) + s, per)
+    shapes: Dict[str, Any] = {"layers": layers}
+    if n_pro:
+        shapes["prologue"] = [dict(per) for _ in range(n_pro)]
+    return shapes
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> Dict[str, Any]:
-    """Contiguous per-layer K/V cache {"layers": {"k": (L,B,S,Hkv,D), "v"}}:
-    the slot layout's cache, and the prefill output the paged cache copies
-    its pages from."""
+    """Zeroed cache in the reference's tree: {"layers": {"k": (L,B,S,Hkv,D),
+    "v"}} for a homogeneous GQA stack (the slot layout's cache, and the
+    prefill output the paged cache copies its pages from); MLA keeps
+    {"ckv": (.., B,S,R), "krope": (.., B,S,Dr)}; a prologue adds a list of
+    per-layer caches; whisper adds the encoder "memory" (B, enc_len, d)."""
     dev = devlib.resolve(device)
     dt = dtype or cfg.adtype
-    return {"layers": {name: torch.zeros(shape, dtype=dt, device=dev)
-                       for name, shape in cache_shapes(cfg, batch, max_seq)["layers"].items()}}
+    return _map_shapes(lambda s: torch.zeros(s, dtype=dt, device=dev),
+                       cache_shapes(cfg, batch, max_seq))
 
 
 # =============================================================================
@@ -97,20 +178,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 # =============================================================================
 
 def _placement_stack(cfg: ModelConfig, placements, device) -> Optional[torch.Tensor]:
-    """placements: None | (L, S) int32 slot-map array, S = E + R."""
+    """placements: None | (n_moe, S) int32 slot-map array, S = E + R, one
+    row per MoE layer."""
     if placements is None or not cfg.is_moe:
         return None
     return torch.as_tensor(placements, dtype=torch.int32, device=device)
 
 
-def _placement(cfg: ModelConfig, pstack, l: int) -> Optional[ExpertPlacement]:
+def _placement(cfg: ModelConfig, pstack, i: int) -> Optional[ExpertPlacement]:
     if pstack is None:
         return None
-    return ExpertPlacement.from_slot_map(pstack[l], cfg.num_experts)
+    return ExpertPlacement.from_slot_map(pstack[i], cfg.num_experts)
 
 
 def _agg_aux(auxs: List[dict]) -> dict:
-    """Sum the router losses over layers; stack every other stat (L, ...)."""
+    """Sum the router losses over MoE layers; stack every other stat
+    (n_moe, ...)."""
     out = {}
     if not auxs or not auxs[0]:
         return out
@@ -120,6 +203,48 @@ def _agg_aux(auxs: List[dict]) -> dict:
     return out
 
 
+def _attn_layers(params, cfg: ModelConfig, cache) -> Iterator[Tuple[dict, Any, bool, bool]]:
+    """The attention-family stack in execution order: (block params, its
+    cache or None, local flag, is-MoE) for the dense prologue, then either
+    the interleaved super-blocks (one MoE layer, then moe_every - 1 dense
+    ones) or the homogeneous scanned stack."""
+    n_pro = _n_prologue(cfg)
+    for i in range(n_pro):
+        yield (params["prologue"][i],
+               cache["prologue"][i] if cache is not None else None, False, False)
+    layers = cache["layers"] if cache is not None else None
+    if _interleaved(cfg):
+        blocks = params["blocks"]
+        for s in range((cfg.num_layers - n_pro) // cfg.moe_every):
+            yield (_layer(blocks["moe"], s),
+                   _layer(layers["moe"], s) if layers is not None else None, False, True)
+            dense = _layer(blocks["dense"], s)
+            dense_c = _layer(layers["dense"], s) if layers is not None else None
+            for j in range(cfg.moe_every - 1):
+                yield (_layer(dense, j),
+                       _layer(dense_c, j) if dense_c is not None else None, False, False)
+        return
+    for i in range(cfg.num_layers - n_pro):
+        yield (_layer(params["blocks"], i),
+               _layer(layers, i) if layers is not None else None,
+               cfg.layer_is_local(n_pro + i), cfg.is_moe)
+
+
+def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, block):
+    """Run ``block(p, x, c, local, is_moe, placement, stats)`` over the
+    stack; the placement stack and the stats are indexed by MoE layer.
+    Returns (x, aux)."""
+    pstack = _placement_stack(cfg, placements, x.device)
+    auxs, n_moe = [], 0
+    for p, c, local, is_moe in _attn_layers(params, cfg, cache):
+        plc = _placement(cfg, pstack, n_moe) if is_moe else None
+        x, _, aux = block(p, x, c, local, is_moe, plc, stats and is_moe)
+        if is_moe:
+            auxs.append(aux)
+            n_moe += 1
+    return x, _agg_aux(auxs)
+
+
 def _head(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     w = (params["embed"]["embedding"] if cfg.tie_embeddings
@@ -127,29 +252,62 @@ def _head(params, cfg: ModelConfig, x):
     return unembed_apply({"unembedding": w}, x, cfg.final_logit_softcap)
 
 
+def _positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def _forward_encdec(params, cfg: ModelConfig, tokens, frames, cache, cache_pos,
+                    decode: bool):
+    """whisper: the encoder over the stub frame embeddings (prefill), then
+    the decoder with cross-attention over its memory.  Decode reads the
+    memory from the cache; prefill with a cache stores it there."""
+    if decode:
+        memory = cache["memory"]
+    else:
+        x = frames.to(cfg.adtype)
+        for i in range(cfg.num_encoder_layers):
+            x = B.encoder_block_full(_layer(params["enc_blocks"], i), cfg, x)
+        memory = rms_norm(x, params["enc_final_norm"]["scale"], cfg.norm_eps)
+    x = embed_apply(params["embed"], tokens)
+    b, s, _ = x.shape
+    positions = None if decode else _positions(b, s, x.device)
+    layers = cache["layers"] if cache is not None else None
+    for l in range(cfg.num_layers):
+        p = _layer(params["blocks"], l)
+        c = _layer(layers, l) if layers is not None else None
+        if decode:
+            x, _ = B.cross_block_decode(p, cfg, x, c, cache_pos, memory)
+        else:
+            x, _ = B.cross_block_full(p, cfg, x, positions, memory, c)
+    if cache is not None and not decode:
+        cache["memory"] = memory
+    return _head(params, cfg, x), cache, {}
+
+
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
-            vision_embeds: Optional[torch.Tensor] = None, placements=None,
+            vision_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None, placements=None,
             dispatch_mode: str = "dense", stats: bool = False):
     """Full-sequence forward (train-forward with cache=None, prefill with a
     cache, which is written in place).  For a VLM, ``vision_embeds``
     (B, P, d) precede the token embeddings, cast to their dtype, and the
-    positions, logits and cache cover the P + S positions.  Returns
-    (logits (B,P+S,V) f32, cache, aux)."""
+    positions, logits and cache cover the P + S positions; whisper takes
+    ``frames`` (B, enc_len, d).  Returns (logits (B,P+S,V) f32, cache, aux)."""
     _check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        return _forward_encdec(params, cfg, tokens, frames, cache, None, False)
     x = embed_apply(params["embed"], tokens)
     if cfg.family == "vlm" and vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    pstack = _placement_stack(cfg, placements, x.device)
-    auxs = []
-    for l in range(cfg.num_layers):
-        c = _layer(cache["layers"], l) if cache is not None else None
-        x, _, aux = B.attn_block_full(_layer(params["blocks"], l), cfg, x, positions,
-                                      cfg.layer_is_local(l), c, cfg.layer_is_moe(l),
-                                      _placement(cfg, pstack, l), dispatch_mode, stats)
-        auxs.append(aux)
-    return _head(params, cfg, x), cache, _agg_aux(auxs)
+    positions = _positions(b, s, x.device)
+
+    def block(p, x, c, local, is_moe, plc, st):
+        return B.attn_block_full(p, cfg, x, positions, local, c, is_moe, plc,
+                                 dispatch_mode, st)
+
+    x, aux = _run_stack(params, cfg, x, cache, placements, stats, block)
+    return _head(params, cfg, x), cache, aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, **kw):
@@ -157,42 +315,45 @@ def prefill(params, cfg: ModelConfig, tokens, cache, **kw):
 
 
 def decode_step(params, cfg: ModelConfig, token, cache, cache_pos, *,
-                placements=None, dispatch_mode: str = "dense", stats: bool = False):
+                placements=None, dispatch_mode: str = "dense", stats: bool = False,
+                mla_absorb: bool = False):
     """One decode step against the slot cache (serving/kvcache.SlotKVCache).
 
-    token: (B, 1) int; cache: {"layers": {"k": (L,B,S,Hkv,D), "v": ...}},
-    updated IN PLACE; cache_pos: (B,) next write position per row.  Returns
-    (logits (B,V), cache, aux)."""
+    token: (B, 1) int; cache: ``init_cache``'s tree, updated IN PLACE;
+    cache_pos: (B,) next write position per row; ``mla_absorb`` picks MLA's
+    latent-space decode.  Returns (logits (B,V), cache, aux)."""
     _check_supported(cfg)
+    if cfg.is_encoder_decoder:
+        logits, cache, aux = _forward_encdec(params, cfg, token, None, cache,
+                                             cache_pos, True)
+        return logits[:, -1], cache, aux
     x = embed_apply(params["embed"], token)
-    pstack = _placement_stack(cfg, placements, x.device)
-    auxs = []
-    for l in range(cfg.num_layers):
-        x, _, aux = B.attn_block_decode(
-            _layer(params["blocks"], l), cfg, x, _layer(cache["layers"], l), cache_pos,
-            cfg.layer_is_local(l), cfg.layer_is_moe(l), _placement(cfg, pstack, l),
-            dispatch_mode, stats)
-        auxs.append(aux)
-    return _head(params, cfg, x)[:, -1], cache, _agg_aux(auxs)
+
+    def block(p, x, c, local, is_moe, plc, st):
+        return B.attn_block_decode(p, cfg, x, c, cache_pos, local, is_moe, plc,
+                                   dispatch_mode, st, mla_absorb)
+
+    x, aux = _run_stack(params, cfg, x, cache, placements, stats, block)
+    return _head(params, cfg, x)[:, -1], cache, aux
 
 
 def decode_step_paged(params, cfg: ModelConfig, token, pages, block_tables,
                       lengths, *, placements=None, dispatch_mode: str = "dense",
                       stats: bool = False, use_kernel: bool = False):
-    """One decode step against a paged KV pool (serving/kvcache.PagedKVCache).
+    """One decode step against a paged KV pool (serving/kvcache.PagedKVCache;
+    homogeneous GQA stacks only, as ``check_paged`` enforces).
 
     token: (B, 1) int; pages: {"k": (L,P,BS,Hkv,D), "v": ..., optional
     "k_scale"/"v_scale": (L,P)}, updated IN PLACE; block_tables: (B, NB)
     int32; lengths: (B,) tokens resident per row.  Returns (logits (B,V),
     pages, aux)."""
     _check_supported(cfg)
+    check_paged(cfg)
     x = embed_apply(params["embed"], token)
-    pstack = _placement_stack(cfg, placements, x.device)
-    auxs = []
-    for l in range(cfg.num_layers):
-        x, _, aux = B.attn_block_decode_paged(
-            _layer(params["blocks"], l), cfg, x, _layer(pages, l), block_tables,
-            lengths, cfg.layer_is_local(l), cfg.layer_is_moe(l),
-            _placement(cfg, pstack, l), dispatch_mode, stats, use_kernel)
-        auxs.append(aux)
-    return _head(params, cfg, x)[:, -1], pages, _agg_aux(auxs)
+
+    def block(p, x, c, local, is_moe, plc, st):
+        return B.attn_block_decode_paged(p, cfg, x, c, block_tables, lengths, local,
+                                         is_moe, plc, dispatch_mode, st, use_kernel)
+
+    x, aux = _run_stack(params, cfg, x, {"layers": pages}, placements, stats, block)
+    return _head(params, cfg, x)[:, -1], pages, aux

@@ -32,8 +32,13 @@ _SKIP = -1  # write_slot axis sentinel: leaf has no batch axis, leave untouched
 
 
 def _tree_map(fn, *trees):
+    """Map ``fn`` over the leaves of same-structured trees.  Dicts and lists
+    (a prologue's per-layer caches) are nodes; anything else, a shape tuple
+    of ``models.model.cache_shapes`` included, is a leaf."""
     if isinstance(trees[0], dict):
         return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_tree_map(fn, *parts) for parts in zip(*trees)]
     return fn(*trees)
 
 
@@ -151,12 +156,7 @@ class PagedKVCache:
                  *, block_size: int = 16, total_blocks: Optional[int] = None,
                  dtype=None, quantize: bool = False, device=None):
         cfg = model_cfg
-        if (cfg.attention_type != "gqa" or cfg.is_ssm or cfg.is_hybrid
-                or cfg.is_encoder_decoder):
-            raise ValueError("PagedKVCache supports homogeneous GQA stacks only")
-        if cfg.is_moe and (cfg.first_k_dense != 0 or cfg.moe_every != 1):
-            raise ValueError("PagedKVCache requires a homogeneous layer stack "
-                             "(first_k_dense == 0, moe_every == 1)")
+        M.check_paged(cfg)
         if max_slots <= 1 or block_size <= 0:
             raise ValueError("PagedKVCache needs max_slots > 1 and block_size > 0")
         self.device = devlib.resolve(device)

@@ -37,8 +37,7 @@ from repro_torch.serving import kvcache as TKV
 from repro_torch.serving.engine import Engine
 
 ARCHS = ("gemma2-2b", "qwen2-72b", "granite-3-8b", "granite-20b", "internvl2-26b")
-UNSUPPORTED = ("deepseek-v2-236b", "llama4-maverick-400b-a17b", "mamba2-370m",
-               "zamba2-1.2b", "whisper-medium")
+UNSUPPORTED = ("mamba2-370m", "zamba2-1.2b")
 TOL = dict(rtol=2e-4, atol=2e-4)
 MAX_SEQ = 64
 PROMPTS = (12, 19)          # both past the smoke window of 8
@@ -253,10 +252,10 @@ def test_local_layers_never_launch_the_paged_kernel(monkeypatch):
 @pytest.mark.parametrize("arch", UNSUPPORTED)
 def test_unported_families_raise(arch):
     """Registered for the cost model, not yet runnable: the model raises and
-    names the ROADMAP items that bring each family."""
+    names the ROADMAP item that brings SSM and hybrid stacks."""
     tc = get_smoke_config(arch)
     assert tc.total_params() > 0
-    with pytest.raises(NotImplementedError, match="items 12-14"):
+    with pytest.raises(NotImplementedError, match="item 13"):
         TM.init_params(tc, seed=0, device="cpu")
 
 

@@ -626,6 +626,83 @@ def test_router_trace_check_wants_one_kernel_per_call():
     chip_smoke._check_router_trace(both, dict(launches, topk_router=3), "test")
 
 
+def test_device_rows_retakes_only_empty_traces(monkeypatch):
+    """chip_smoke.py's ``Timer.device_rows`` takes a trace again, after a
+    growing pause, when it holds no device event at all (the profiler's
+    own fault), up to PROFILE_ATTEMPTS traces; a trace that shows the L2
+    flushes but no kernel of the call is kept, so a kernel that never
+    launched still fails the one-launch-a-call check."""
+    import types
+    import chip_smoke
+    from torch.autograd import DeviceType
+
+    def ev(key, count):
+        return types.SimpleNamespace(key=key, count=count, device_type=DeviceType.CUDA,
+                                     self_device_time_total=10.0 * count)
+
+    flush = ev("void at::native::FillFunctor<float>", 5)
+    router = ev("void rt::router::route_kernel<true, 4>(float const*)", 5)
+    traces = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return traces.pop(0)
+
+    pauses = []
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke.time, "sleep", pauses.append)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    timer = chip_smoke.Timer(torch)
+    calls = []
+    traces[:] = [[], [], [flush, router]]
+    assert timer.device_rows(lambda: calls.append(1), iters=5) == [(router.key, 10.0, 5)]
+    assert len(calls) == 1 + 3 * 5 and not traces and pauses == [1, 2]
+    traces[:] = [[flush], [flush, router]]
+    assert timer.device_rows(lambda: None, iters=5) == [] and len(traces) == 1
+    traces[:] = [[]] * chip_smoke.PROFILE_ATTEMPTS + [[flush, router]]
+    assert timer.device_rows(lambda: None, iters=5) == [] and len(traces) == 1
+    assert pauses == [1, 2, 1, 2, 4, 8]
+
+
+def test_traced_runs_are_run_again_only_on_empty_traces(monkeypatch):
+    """chip_smoke.py's ``_retraced`` runs a traced engine run again, after a
+    growing pause, while its trace holds no device event (``EmptyTrace``),
+    up to PROFILE_ATTEMPTS runs; any other failed check is raised at once."""
+    import chip_smoke
+    pauses, runs = [], []
+    monkeypatch.setattr(chip_smoke.time, "sleep", pauses.append)
+
+    def run(outcomes):
+        def once(trace):
+            assert trace is True
+            runs.append(1)
+            out = outcomes.pop(0)
+            if isinstance(out, Exception):
+                raise out
+            return out
+        return once
+
+    empty = chip_smoke.EmptyTrace("trace[test]: the profiler recorded no device event")
+    assert chip_smoke._retraced(run([empty, empty, "done"])) == "done"
+    assert len(runs) == 3 and pauses == [1, 2]
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke._retraced(run([AssertionError("launches differ"), "done"]))
+    assert len(runs) == 4
+    with pytest.raises(chip_smoke.EmptyTrace):
+        chip_smoke._retraced(run([empty] * chip_smoke.PROFILE_ATTEMPTS))
+    assert len(runs) == 4 + chip_smoke.PROFILE_ATTEMPTS
+
+
 # --- identity-placement router -----------------------------------------------------------
 
 def _topk_both(logits: np.ndarray, k: int, block_t: int = 64):
