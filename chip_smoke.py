@@ -26,13 +26,13 @@
    checked and timed the same way at the dense families' shapes too:
    gemma2-2b's 8 / 4 heads x 256 with softcap 50 over 4864 positions (and
    int8 pages), granite-20b's 48 query heads on one KV head, and kernel 4
-   at llama4's 40 / 8 heads x 128.  Before any model is resident, the
-   router is checked the same way at deepseek-v2's E = 160, k = 6 and
-   llama4's E = 128, k = 1 (identity and replica tables, kernel 5; T = 8,
-   512 and a forced plan), and ``moe_gemm`` in bf16 at deepseek's (160, C,
-   5120) x (160, 5120, 1536) and (160, C, 1536) x (160, 1536, 5120) and
-   llama4's (128, C, 5120) x (128, 5120, 8192) and (128, C, 8192) x (128,
-   8192, 5120), C = 8 and 32.
+   at llama4's 40 / 8 heads x 128 and zamba2's 32 / 32 heads x 64.
+   Before any model is resident, the router is checked the same way at
+   deepseek-v2's E = 160, k = 6 and llama4's E = 128, k = 1 (identity and
+   replica tables, kernel 5; T = 8, 512 and a forced plan), and
+   ``moe_gemm`` in bf16 at deepseek's (160, C, 5120) x (160, 5120, 1536)
+   and (160, C, 1536) x (160, 1536, 5120) and llama4's (128, C, 5120) x
+   (128, 5120, 8192) and (128, C, 8192) x (128, 8192, 5120), C = 8 and 32.
 3. Checks the kernel path against the plain path end to end at full width
    in f32 (2 layers): one paged decode step, and one slot-layout decode
    step under a replicated placement whose weights ``apply_placement``
@@ -97,9 +97,25 @@
    T = 8.  whisper-medium at full depth (24 + 24 layers): seeded (8, 1500,
    1024) frames, prompts of 16-64 tokens, ``prefill`` then 32
    ``decode_step``s, logits finite.  Launch counts must match the path.
-8. Prints the card's name and power limit, one JSON line listing the
-   kernels (with the cluster, families and variants runs' launches beside
-   the main path's), and as the last line ``{"ok": true, "device": {...}}``.
+8. Serves the SSM and hybrid families at full width and full depth,
+   random bf16 weights from seed 0: first two f32 gates at shallow depth
+   (mamba2 at 2 layers, zamba2 at 3: one super-block and one epilogue
+   layer), the card against the CPU on the same weights (a 300-token
+   prefill of two chunks and 4 decode steps) and each recurrent decode
+   step against an unpadded chunked prefill at that position, which must
+   reject two faulty decodes (the state not written back, the conv tail
+   read as zeros); then mamba2-370m (48 layers) and zamba2-1.2b (38) each
+   through ``Engine`` on the slot layout (16 requests, the state in bf16,
+   ``usage()`` state-slot occupancy for mamba2 and resident tokens for
+   zamba2), a 16383-token mamba2 row whose engine's slot cache must be no
+   larger than the 1024-position engine's, a short traced mamba2 run (busy
+   share, host waits a decode step), and kernel 4 held against its plain
+   version on zamba2's shared-attention cache during the run and timed on
+   it beside SDPA.  Launch counts must match the path.
+9. Prints the card's name and power limit, one JSON line listing the
+   kernels (with the cluster, families, variants and ssm runs' launches
+   beside the main path's), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
 port's sources are missing.  Imports nothing of JAX or of the reference
@@ -584,18 +600,20 @@ def _slot_flash_decode_checks(torch, timer: Timer, cfg, gen) -> dict:
         library_ms=main["lib"])}
 
 
-# (arch, positions a row, kernel 1 too) of the families' and variants'
+# (arch, positions a row, kernel 1 too) of the families', variants' and ssm
 # decode shapes: gemma2's 8 / 4 heads x 256 with softcap 50 over its
 # 4864-position runs past the 4096 window, granite-20b's 48 query heads on
 # one KV head over 1024, llama4's 40 / 8 heads x 128 over its slot runs'
-# 1024 (kernel 4 only: the paged layout rejects the interleaved stack)
+# 1024 (kernel 4 only: the paged layout rejects the interleaved stack), and
+# zamba2's shared attention, 32 / 32 heads x 64 over 1024 (kernel 4 only:
+# the paged layout rejects the hybrid stack)
 FAMILY_SHAPES = (("gemma2-2b", 4864, True), ("granite-20b", 1024, True),
-                 ("llama4-maverick-400b-a17b", 1024, False))
+                 ("llama4-maverick-400b-a17b", 1024, False), ("zamba2-1.2b", 1024, False))
 
 
 def _family_decode_checks(torch, timer: Timer, gen) -> dict:
-    """Kernels 1 and 4 at the shapes the families and variants phases give
-    them (B = 8, 16-position pages for kernel 1; bf16, and for gemma2 int8 pages too;
+    """Kernels 1 and 4 at the shapes the families, variants and ssm phases
+    give them (B = 8, 16-position pages for kernel 1; bf16, and for gemma2 int8 pages too;
     softcap 0 and the family's own), each against its plain version with
     the fault checks of the qwen3 shapes and timed as they are (CUDA events,
     and at softcap 0 the profiler's device time, which a loaded host does
@@ -1203,8 +1221,11 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
     try:
         torch.cuda.synchronize()
         if trace:
+            # the device's events and the host's runtime calls: recording
+            # every host operator as well slows the host it measures and
+            # multiplies the trace's processing time
             from torch.profiler import ProfilerActivity, profile
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof = profile(activities=[ProfilerActivity.CUDA])
             prof.__enter__()
         K.reset_launch_counts()
         t0 = time.perf_counter()
@@ -1236,7 +1257,7 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
         f"{eng.max_slots} rows) scheduler_and_rest_s="
         f"{wall - secs['start'] - secs['decode']:.4f}")
     if prof is not None:
-        rows = _report_trace(prof, wall, label)
+        rows = _report_trace(prof, wall, label, seen)
         if not rows:
             raise EmptyTrace(f"trace[{label}]: the profiler recorded no device event")
         _check_router_trace(rows, launches, label)
@@ -1758,6 +1779,10 @@ def _family_params(torch, cfg, label: str):
     if cfg.is_encoder_decoder:
         extra += (f" encoder_layers={cfg.num_encoder_layers} "
                   f"encoder_len={cfg.encoder_len}")
+    if cfg.ssm_state:
+        extra += (f" ssm d_inner={cfg.ssm_d_inner} heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "
+                  f"state={cfg.ssm_state} conv={cfg.ssm_conv} chunk={cfg.ssm_chunk} "
+                  f"shared_attn_every={cfg.shared_attn_every}")
     log(f"family[{label}]: {cfg.num_layers} layers, d_model={cfg.d_model} heads="
         f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} qkv_bias={cfg.qkv_bias} softcaps={cfg.attn_logit_softcap}/"
@@ -2047,13 +2072,275 @@ def variants_phase(torch) -> dict:
     return runs
 
 
-def _report_trace(prof, wall_s: float, label: str) -> list:
+# ----------------------------------------------------------------------------- ssm
+
+MAMBA2, ZAMBA2 = "mamba2-370m", "zamba2-1.2b"
+# the f32 gates' models: full width, shallow depth; zamba2 keeps one
+# super-block (the shared attention block, then 2 mamba layers) and one
+# epilogue mamba layer
+SSM_GATE_CUTS = ((MAMBA2, dict(num_layers=2)),
+                 (ZAMBA2, dict(num_layers=3, shared_attn_every=2)))
+SSM_GATE_PROMPT, SSM_GATE_STEPS = 300, 4    # two 256-token chunks, the second ragged
+SSM_LONG_ROW = 16383                        # bucket 16384: 64 chunks of 256
+SSM_LONG_STEPS = 32                         # decode steps after it, inside max_seq
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _ssm_forced(torch, cfg, params, toks, n: int, device):
+    """Prefill ``toks[:n]`` unpadded into a fresh cache on ``device``, then
+    decode ``toks[n:]`` one token a step (teacher-forced).  Returns (the
+    prefill's logits (n, V), the decode steps' logits (len - n, V) or None
+    when there is none)."""
+    from repro_torch.models import model as M
+
+    t = torch.as_tensor(toks, device=device)[None]
+    cache = M.init_cache(cfg, 1, t.shape[1], device=device)
+    steps = []
+    with torch.no_grad():
+        logits, _, _ = M.prefill(params, cfg, t[:, :n], cache)
+        for i in range(n, t.shape[1]):
+            pos = torch.tensor([i], dtype=torch.int32, device=device)
+            steps.append(M.decode_step(params, cfg, t[:, i:i + 1], cache, pos)[0][0])
+    return logits[0], torch.stack(steps) if steps else None
+
+
+def _ssm_decode_faults() -> dict:
+    """Two wrong Mamba2 decode steps, each the port's own step with one
+    fault: the new state written into a copy (the cache keeps the old one),
+    and the conv tail read as zeros."""
+    from repro_torch.models import mamba2 as m2
+    step = m2.mamba2_decode
+
+    def state_not_written(params, cfg, u, cache):
+        out, _ = step(params, cfg, u, dict(cache, ssm=cache["ssm"].clone()))
+        return out, cache
+
+    def conv_tail_zeros(params, cfg, u, cache):
+        cache["conv"].zero_()
+        return step(params, cfg, u, cache)
+
+    return {"state not written back": state_not_written,
+            "conv tail read as zeros": conv_tail_zeros}
+
+
+def _ssm_gates(torch, cfg32, params, label: str) -> dict:
+    """The two f32 gates of an SSM or hybrid model at full width: (a) the
+    card against the CPU on the same weights, a ``SSM_GATE_PROMPT``-token
+    prefill and ``SSM_GATE_STEPS`` decode steps, logits within ``TOL``;
+    (b) chunked against recurrent on the card, each decode step's logits
+    against an unpadded prefill of all the tokens at that position, within
+    ``TOL``, and each of ``_ssm_decode_faults`` outside it.  Returns
+    {gate: max abs err}."""
+    import numpy as np
+    from repro_torch.models import mamba2 as m2
+
+    n = SSM_GATE_PROMPT
+    toks = np.random.default_rng(SEED + 7).integers(0, cfg32.vocab_size, n + SSM_GATE_STEPS)
+    tol = TOL["float32"]
+    pre, dec = _ssm_forced(torch, cfg32, params, toks, n, DEVICE)
+    cpu_pre, cpu_dec = _ssm_forced(torch, cfg32, _tree_to(params, "cpu"), toks, n, "cpu")
+    errs = {"card vs cpu": max(
+        check_close(f"ssm{label}: prefill logits, card vs CPU", pre.cpu(), cpu_pre, tol),
+        check_close(f"ssm{label}: decode logits, card vs CPU", dec.cpu(), cpu_dec, tol))}
+    want = _ssm_forced(torch, cfg32, params, toks, len(toks), DEVICE)[0][n:]
+    errs["recurrent vs chunked"] = check_close(
+        f"ssm{label}: decode logits against the chunked prefill's", dec, want, tol)
+    step, faults = m2.mamba2_decode, {}
+    try:
+        for fault, wrong in _ssm_decode_faults().items():
+            m2.mamba2_decode = wrong
+            faults[fault] = max_excess(_ssm_forced(torch, cfg32, params, toks, n, DEVICE)[1],
+                                       want, tol, tol)
+    finally:
+        m2.mamba2_decode = step
+    for fault, (_, excess) in faults.items():
+        if excess <= 0:
+            raise AssertionError(f"ssm{label}: the recurrent gate cannot tell {fault!r} "
+                                 f"from the chunked prefill")
+    log(f"ssm{label}: f32, prompt {n} + {SSM_GATE_STEPS} decode steps: card vs CPU "
+        f"max_abs_err={errs['card vs cpu']:.3e}, decode vs chunked prefill max_abs_err="
+        f"{errs['recurrent vs chunked']:.3e} (rtol = atol = {tol}); faults outside the "
+        f"gate: " + ", ".join(f"{f} (max abs err {e:.3e})" for f, (e, _) in faults.items()))
+    return errs
+
+
+def _ssm_engine(torch, cfg, params, label: str, reqs, *, trace: bool = False,
+                max_seq: int = 1024, prefill_budget: int = 512) -> dict:
+    """One slot-layout ``Engine`` run of an SSM or hybrid model (no expert
+    level, 8 slots) through ``_serve``.  Checks that the cache keeps the
+    state in bf16 and, every 8th decode step right after it is enqueued,
+    that ``usage()`` is occupied slots over slots for a model without
+    attention and resident tokens over capacity otherwise; for a hybrid,
+    kernel 4 runs there on super-block 0's shared-attention KV cache
+    (lengths = resident tokens, 0 for free slots) against its plain
+    version, and the inputs of the check with the most resident tokens are
+    kept.  Launch counts must equal the path's:
+    the slot path attends in plain PyTorch, so only those checks launch.
+    Returns ``_serve``'s dict with the snapshot, the slot cache's bytes and
+    the peak device memory."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.engine import Engine
+
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(0, cfg, params, variant="gimbal", expert_level=None, max_slots=8,
+                 max_seq=max_seq, prefill_budget=prefill_budget, kv_layout="slot",
+                 device=DEVICE)
+    state = eng.kv.cache["layers" if cfg.is_ssm else "super_mamba"]["ssm"]
+    if state.dtype != torch.bfloat16:
+        raise AssertionError(f"engine[{label}]: the SSM state is {state.dtype}, not bf16")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 8)
+    live = {"steps": 0, "usage": 0, "fd": 0, "fd_err": 0.0, "snapshot": None}
+
+    def check_live(eng):
+        kv, step = eng.kv, live["steps"]
+        live["steps"] += 1
+        if step % 8:
+            return
+        occupied = 1.0 - kv.num_free / kv.max_slots
+        resident = float(kv.slot_len.sum()) / (kv.max_slots * kv.max_seq)
+        want = occupied if cfg.num_attention_layers() == 0 else resident
+        if kv.usage() != want:
+            raise AssertionError(f"engine[{label}]: usage() {kv.usage()} != {want}")
+        live["usage"] += 1
+        if not cfg.is_hybrid:
+            return
+        k, v = kv.cache["super_attn"]["k"][0], kv.cache["super_attn"]["v"][0]
+        lengths = torch.as_tensor(kv.slot_len, dtype=torch.int32, device=DEVICE)
+        q = torch.randn((kv.max_slots, cfg.num_heads, cfg.head_dim), generator=gen,
+                        device=DEVICE).to(cfg.adtype)
+        got = ops.decode_attention(q, k, v, lengths)
+        live["fd_err"] = max(live["fd_err"], check_close(
+            f"flash_decode on {label}'s shared-attention cache", got,
+            ref.ref_flash_decode(q, k, v, lengths), *FD_TOL[cfg.dtype]))
+        if not (got[lengths == 0] == 0).all():
+            raise AssertionError("flash_decode: a free slot's row is not exactly zero")
+        live["fd"] += 1
+        if live["snapshot"] is None or lengths.sum() > live["snapshot"][3].sum():
+            live["snapshot"] = (q, k.clone(), v.clone(), lengths)
+
+    run = _serve(torch, eng, reqs, "decode_step", label, trace=trace, after_decode=check_live)
+    want = dict(run["path"], flash_decode_paged=0, flash_decode=live["fd"], topk_router=0)
+    if run["launches"] != want:
+        raise AssertionError(f"engine[{label}]: launches {run['launches']} != path {want}")
+    run.update(snapshot=live["snapshot"], peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               cache_bytes=sum(t.numel() * t.element_size() for t in _leaves(eng.kv.cache)))
+    log(f"engine[{label}]: state dtype={state.dtype} usage_checks={live['usage']} "
+        f"flash_decode_live_checks={live['fd']} flash_decode_live_max_abs_err="
+        f"{live['fd_err']:.3e} slot_cache_bytes={run['cache_bytes']} "
+        f"peak_device_memory_gib={run['peak_gib']:.2f}")
+    return run
+
+
+def _live_flash_decode(torch, timer: Timer, label: str, snapshot) -> None:
+    """Kernel 4 on a run's own slot cache, kept during the run: against its plain
+    version, timed beside it and beside one SDPA call (CUDA events, and the
+    profiler's device time), its bound from the resident K/V bytes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_decode, ref
+    from repro_torch.kernels.flash_decode import split_plan
+
+    q, k, v, lengths = snapshot
+    b, s, hkv, d = k.shape
+    hq = q.shape[1]
+    n_tok = int(lengths.sum())
+    rtol, atol = FD_TOL["bfloat16"]
+    err = check_close(f"flash_decode on {label}", flash_decode(q, k, v, lengths),
+                      ref.ref_flash_decode(q, k, v, lengths), rtol, atol)
+    mask = (torch.arange(s, device=DEVICE)[None, :] < lengths[:, None])[:, None, None, :]
+    qs, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    ms = timer.ms(lambda: flash_decode(q, k, v, lengths))
+    plain = timer.ms(lambda: ref.ref_flash_decode(q, k, v, lengths))
+    lib = timer.ms(sdpa)
+    nbytes = 2 * q.numel() * 2 + n_tok * hkv * d * 2 * 2 + b * 4
+    bound = _bound(nbytes, 4 * n_tok * hq * d, "bfloat16")
+    log(f"device time flash_decode {label}: kernel "
+        f"[{timer.device_us(lambda: flash_decode(q, k, v, lengths))}] sdpa "
+        f"[{timer.device_us(sdpa)}]")
+    log(f"kernel flash_decode {label} B={b} S={s} heads={hq}/{hkv}x{d} "
+        f"resident={lengths.tolist()} tokens={n_tok} "
+        f"n_split={split_plan(b, s, hq, hkv, d, 2).n_split}: max_abs_err={err:.3e} "
+        f"(rtol {rtol}, atol {atol}) ms={ms:.4f} plain_ms={plain:.4f} library_ms(sdpa)="
+        f"{lib:.4f} bound_ms={bound[0]:.4f} ({bound[1]}) {_tb_s(nbytes, ms)}")
+
+
+def ssm_phase(torch) -> dict:
+    """The SSM and hybrid families at full width, random bf16 weights from
+    seed 0, each model freed before the next: the f32 gates of mamba2 at 2
+    layers and zamba2 at 3 (``_ssm_gates``); mamba2-370m at full depth (48
+    layers) through ``Engine`` (16 requests), one 16383-token row and 32
+    decode steps on an engine whose slot cache must hold as many bytes as
+    the 1024-position engine's, and a short traced run; zamba2-1.2b at full
+    depth (38 layers) through ``Engine`` (16 requests), with kernel 4 held
+    on its shared-attention cache and timed there.  Returns each run's
+    kernel launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+
+    _free(torch)
+    log(f"ssm phase: device memory held on entry "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    for arch, cut in SSM_GATE_CUTS:
+        cfg32 = get_config(arch).replace(dtype="float32", **cut)
+        params = M.init_params(cfg32, seed=SEED + 1, device=DEVICE)
+        _ssm_gates(torch, cfg32, params, f"[{arch}, {cfg32.num_layers} layers]")
+        del params
+        _free(torch)
+    log(f"ssm phase: f32 gates {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for arch in (MAMBA2, ZAMBA2):
+        t1 = time.perf_counter()
+        cfg = get_config(arch)
+        params = _family_params(torch, cfg, arch)
+        run = _ssm_engine(torch, cfg, params, arch, _requests(cfg, 16, 32))
+        runs[arch] = run["launches"]
+        if arch == MAMBA2:
+            label = f"{arch} long row"
+            # the prefill gives the first token, each decode step one more;
+            # a row finishes when it reaches max_seq - 1 positions
+            max_seq = SSM_LONG_ROW + SSM_LONG_STEPS + 2
+            long_row = _ssm_engine(torch, cfg, params, label,
+                                   _requests(cfg, 1, SSM_LONG_STEPS + 1, lo=SSM_LONG_ROW,
+                                             hi=SSM_LONG_ROW),
+                                   max_seq=max_seq, prefill_budget=max_seq)
+            if long_row["cache_bytes"] != run["cache_bytes"]:
+                raise AssertionError(f"engine[{label}]: the slot cache holds "
+                                     f"{long_row['cache_bytes']} bytes at max_seq {max_seq}, "
+                                     f"{run['cache_bytes']} at 1024")
+            runs[label] = long_row["launches"]
+            runs[f"{arch} traced"] = _retraced(lambda **kw: _ssm_engine(
+                torch, cfg, params, f"{arch} traced", _requests(cfg, 8, 16), **kw))["launches"]
+        else:
+            timer = Timer(torch)
+            _live_flash_decode(torch, timer, f"{arch}'s shared-attention cache",
+                               run["snapshot"])
+            del timer
+        del params, run
+        _free(torch)
+        log(f"ssm phase: {arch} {time.perf_counter() - t1:.1f} s")
+    log(f"ssm phase: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def _report_trace(prof, wall_s: float, label: str, seen: dict) -> list:
     """Device busy share over the traced run, the host's synchronising
-    runtime calls, and the kernels that took the most device time (summed
-    over launches), with the decode-attention split and merge passes, the
-    router and the host-to-device copies listed wherever they rank.  Only
-    the device's own events count: an operator's row repeats the time of
-    the kernels it launched."""
+    runtime calls (the stream synchronizes also net of the one a call that
+    this script's finiteness checks add, over ``seen``'s prefill and decode
+    calls), and the kernels that took the most device time
+    (summed over launches), with the decode-attention split and merge
+    passes, the router and the host-to-device copies listed wherever they
+    rank."""
     from torch.autograd import DeviceType
     rows = []
     averages = prof.key_averages()
@@ -2077,6 +2364,11 @@ def _report_trace(prof, wall_s: float, label: str) -> list:
              if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                            "cudaMemcpyAsync")}
     log(f"trace[{label}]: host runtime calls {waits}")
+    calls = seen["prefill"] + seen["decode"]
+    net = waits.get("cudaStreamSynchronize", 0) - calls
+    log(f"trace[{label}]: cudaStreamSynchronize net of the finiteness checks {net} over "
+        f"{seen['prefill']} prefills and {seen['decode']} decode steps "
+        f"({net / max(calls, 1):.2f} a call)")
     gemm_ms = sum(us for us, _, key in rows if "tc_gemm_kernel" in key) / 1e3
     if gemm_ms:
         log(f"trace[{label}]: moe_gemm (tc_gemm_kernel) {gemm_ms:.3f} ms of "
@@ -2157,6 +2449,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     families = families_phase(torch)
     variants = variants_phase(torch)
+    ssm = ssm_phase(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2175,7 +2468,8 @@ def main() -> int:
                      "bound_by": k["bound_by"], "library_ms": k["library_ms"],
                      "cluster_launches": {run: n[name] for run, n in cluster.items()},
                      "families_launches": {run: n[name] for run, n in families.items()},
-                     "variants_launches": {run: n[name] for run, n in variants.items()}})
+                     "variants_launches": {run: n[name] for run, n in variants.items()},
+                     "ssm_launches": {run: n[name] for run, n in ssm.items()}})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,8 @@
 Every architecture of the reference (the ten assigned ones plus the paper's
 own Qwen3-30B-A3B) is a module exposing CONFIG (the exact published config)
 and smoke_config() (a reduced same-family variant for CPU tests), with the
-values of ``repro.configs``.  All of them feed the simulator's cost model;
-``models.model`` runs the attention families and raises ``NotImplementedError``
-for the others (ROADMAP.md, Queue 1).  The dry-run's input stand-ins and
+values of ``repro.configs``.  All of them feed the simulator's cost model,
+and ``models.model`` runs every one.  The dry-run's input stand-ins and
 shape cells wait for the launch slice.
 """
 from __future__ import annotations

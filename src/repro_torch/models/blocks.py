@@ -1,23 +1,29 @@
-"""Per-layer blocks, ported from ``repro.models.blocks`` for the attention
-families: pre-norm -> attention (GQA or MLA) -> residual -> pre-norm ->
-FFN/MoE -> residual; whisper's decoder block (self-attention, cross-
+"""Per-layer blocks, ported from ``repro.models.blocks``: the attention
+block (pre-norm -> attention (GQA or MLA) -> residual -> pre-norm ->
+FFN/MoE -> residual), the mamba block (pre-norm -> Mamba2 mixer ->
+residual, no FFN), whisper's decoder block (self-attention, cross-
 attention over the encoder memory, FFN) and its non-causal encoder block.
 Block params are plain dicts; a stack of L layers is the same dict with a
-leading L axis (models/model.py).  Mamba blocks wait for their slice
-(ROADMAP.md, Queue 1 item 13).
+leading L axis (models/model.py).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ffn_apply, init_ffn, init_rms_norm, rms_norm
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool) -> dict:
-    """An attention-mixer block; ``gen`` draws on the target device."""
+def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool,
+               mixer: str = "attn") -> dict:
+    """mixer: 'attn' | 'mamba' (a mamba block has no FFN); ``gen`` draws on
+    the target device."""
+    if mixer == "mamba":
+        return {"mamba_norm": init_rms_norm(cfg.d_model, cfg.adtype, gen.device),
+                "mamba": m2.init_mamba2(gen, cfg)}
     p = {
         "attn_norm": init_rms_norm(cfg.d_model, cfg.adtype, gen.device),
         "attn": attn.init_attention(gen, cfg),
@@ -84,6 +90,20 @@ def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
                                          lengths, is_local, use_kernel)
     x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
     return x, new_cache, aux
+
+
+# --- mamba block ---------------------------------------------------------------------
+
+def mamba_block_full(p: dict, cfg: ModelConfig, x, cache):
+    h = rms_norm(x, p["mamba_norm"]["scale"], cfg.norm_eps)
+    y, cache = m2.mamba2_full(p["mamba"], cfg, h, cache)
+    return x + y, cache
+
+
+def mamba_block_decode(p: dict, cfg: ModelConfig, x, cache):
+    h = rms_norm(x, p["mamba_norm"]["scale"], cfg.norm_eps)
+    y, cache = m2.mamba2_decode(p["mamba"], cfg, h, cache)
+    return x + y, cache
 
 
 # --- whisper decoder block ----------------------------------------------------------

@@ -1,21 +1,26 @@
 """Language model of the port: init / prefill / slot and paged decode,
-ported from ``repro.models.model`` for the attention families: MoE (qwen3;
+ported from ``repro.models.model`` for every family: MoE (qwen3;
 deepseek-v2's dense prologue, shared experts and MLA; llama4's interleaved
 top-1 MoE), dense (gemma2's local/global alternation and softcaps, qwen2's
 QKV bias, granite's GQA and MQA), a VLM's language model (internvl2, whose
-stub vision frontend's embeddings prefix the tokens at prefill) and
+stub vision frontend's embeddings prefix the tokens at prefill),
 whisper's encoder-decoder (stub frame embeddings in, cross-attention over
-the encoder memory).
+the encoder memory), the pure SSM (mamba2: a stack of Mamba2 blocks) and
+the hybrid (zamba2: super-blocks of one shared attention block and
+``shared_attn_every`` Mamba2 blocks, then the leftover Mamba2 blocks).
 
 Parameters and caches keep the reference's trees: ``params["blocks"]``
 holds every scanned layer's tensors with a leading axis, so a layer is
 ``a[l]`` of every leaf and relocating experts is a gather on the expert
 axis; ``params["prologue"]`` / ``cache["prologue"]`` are lists of per-layer
 trees; an interleaved stack groups ``{"moe": (n_super, ...), "dense":
-(n_super, moe_every - 1, ...)}``.  A Python loop over layers replaces
-``lax.scan``, so each layer's local/global flag is a Python bool and only
-its own attention branch runs (the reference's scan computes both branches
-and selects).  SSM and hybrid stacks are a later slice.
+(n_super, moe_every - 1, ...)}``; a hybrid holds one ``shared_attn`` tree,
+reused at every call, its mamba blocks as (n_super, k, ...) and
+``epi_blocks`` (n_epi, ...), and caches ``super_attn`` (n_super, ...),
+``super_mamba`` (n_super, k, ...) and ``epi``.  A Python loop over layers
+replaces ``lax.scan``, so each layer's local/global flag is a Python bool
+and only its own attention branch runs (the reference's scan computes both
+branches and selects).
 """
 from __future__ import annotations
 
@@ -25,16 +30,11 @@ import torch
 
 from repro_torch import device as devlib
 from repro_torch.models import blocks as B
+from repro_torch.models import mamba2 as m2
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed_apply, init_embed, init_rms_norm,
                                        rms_norm, unembed_apply)
 from repro_torch.models.moe import ExpertPlacement
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_ssm or cfg.is_hybrid:
-        raise NotImplementedError(
-            f"{cfg.name}: SSM and hybrid stacks wait for ROADMAP.md Queue 1 item 13")
 
 
 def check_paged(cfg: ModelConfig) -> None:
@@ -72,6 +72,13 @@ def _interleaved(cfg: ModelConfig) -> bool:
     return cfg.is_moe and cfg.moe_every > 1
 
 
+def _hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_super, k, n_epi): super-blocks of one shared attention block and
+    k mamba blocks, then n_epi mamba blocks."""
+    k = cfg.shared_attn_every
+    return cfg.num_layers // k, k, cfg.num_layers % k
+
+
 # =============================================================================
 # init
 # =============================================================================
@@ -81,7 +88,6 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     from the same distributions as the reference's init and laid out in its
     tree (not the same numbers: bridge the reference's weights with
     ``models.convert``)."""
-    _check_supported(cfg)
     dev = devlib.resolve(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -95,6 +101,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
                                        for _ in range(cfg.num_encoder_layers)])
         params["enc_final_norm"] = init_rms_norm(cfg.d_model, cfg.adtype, dev)
         params["blocks"] = _stack([B.init_cross_block(gen, cfg)
+                                   for _ in range(cfg.num_layers)])
+        return params
+    if cfg.is_hybrid:
+        n_super, k, n_epi = _hybrid_split(cfg)
+        params["shared_attn"] = B.init_block(gen, cfg, False)
+        params["blocks"] = _stack([
+            _stack([B.init_block(gen, cfg, False, "mamba") for _ in range(k)])
+            for _ in range(n_super)])
+        if n_epi:
+            params["epi_blocks"] = _stack([B.init_block(gen, cfg, False, "mamba")
+                                           for _ in range(n_epi)])
+        return params
+    if cfg.is_ssm:
+        params["blocks"] = _stack([B.init_block(gen, cfg, False, "mamba")
                                    for _ in range(cfg.num_layers)])
         return params
     n_pro = _n_prologue(cfg)
@@ -134,11 +154,21 @@ def _map_shapes(fn, tree):
 def cache_shapes(cfg: ModelConfig, batch: int, max_seq: int) -> Dict[str, Any]:
     """The shape of every leaf of ``init_cache``'s tree, allocating nothing:
     the same tree, with a shape tuple in place of each tensor."""
-    _check_supported(cfg)
     if cfg.is_encoder_decoder:
         kv = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
         return {"layers": {"k": kv, "v": kv},
                 "memory": (batch, cfg.encoder_len, cfg.d_model)}
+    state = m2.cache_shapes(cfg, batch)
+    if cfg.is_hybrid:
+        n_super, k, n_epi = _hybrid_split(cfg)
+        kv = (n_super, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+        shapes = {"super_attn": {"k": kv, "v": kv},
+                  "super_mamba": _map_shapes(lambda s: (n_super, k) + s, state)}
+        if n_epi:
+            shapes["epi"] = _map_shapes(lambda s: (n_epi,) + s, state)
+        return shapes
+    if cfg.is_ssm:
+        return {"layers": _map_shapes(lambda s: (cfg.num_layers,) + s, state)}
     if cfg.attention_type == "mla":
         per = {"ckv": (batch, max_seq, cfg.kv_lora_rank),
                "krope": (batch, max_seq, cfg.qk_rope_head_dim)}
@@ -166,7 +196,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     "v"}} for a homogeneous GQA stack (the slot layout's cache, and the
     prefill output the paged cache copies its pages from); MLA keeps
     {"ckv": (.., B,S,R), "krope": (.., B,S,Dr)}; a prologue adds a list of
-    per-layer caches; whisper adds the encoder "memory" (B, enc_len, d)."""
+    per-layer caches; whisper adds the encoder "memory" (B, enc_len, d); an
+    SSM keeps {"layers": {"ssm": (L,B,H,P,N), "conv": (L,B,K-1,CC)}} and a
+    hybrid {"super_attn", "super_mamba", "epi"} (see the module docstring).
+    The SSM state is stored in ``dtype`` (``cfg.adtype`` by default)."""
     dev = devlib.resolve(device)
     dt = dtype or cfg.adtype
     return _map_shapes(lambda s: torch.zeros(s, dtype=dt, device=dev),
@@ -228,6 +261,33 @@ def _attn_layers(params, cfg: ModelConfig, cache) -> Iterator[Tuple[dict, Any, b
         yield (_layer(params["blocks"], i),
                _layer(layers, i) if layers is not None else None,
                cfg.layer_is_local(n_pro + i), cfg.is_moe)
+
+
+def _ssm_layers(params, cfg: ModelConfig, cache) -> Iterator[Tuple[dict, Any, bool]]:
+    """An SSM or hybrid stack in execution order: (block params, its cache
+    or None, is-attention).  A hybrid's super-blocks each call the one
+    shared attention tree with that call's own KV cache, then their mamba
+    blocks; the epilogue's mamba blocks follow."""
+    def sub(tree, key, *idx):
+        if tree is None:
+            return None
+        tree = tree[key]
+        for i in idx:
+            tree = _layer(tree, i)
+        return tree
+
+    if cfg.is_ssm:
+        for l in range(cfg.num_layers):
+            yield _layer(params["blocks"], l), sub(cache, "layers", l), False
+        return
+    n_super, k, n_epi = _hybrid_split(cfg)
+    for s in range(n_super):
+        yield params["shared_attn"], sub(cache, "super_attn", s), True
+        for j in range(k):
+            yield (_layer(_layer(params["blocks"], s), j),
+                   sub(cache, "super_mamba", s, j), False)
+    for j in range(n_epi):
+        yield _layer(params["epi_blocks"], j), sub(cache, "epi", j), False
 
 
 def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, block):
@@ -293,7 +353,6 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     (B, P, d) precede the token embeddings, cast to their dtype, and the
     positions, logits and cache cover the P + S positions; whisper takes
     ``frames`` (B, enc_len, d).  Returns (logits (B,P+S,V) f32, cache, aux)."""
-    _check_supported(cfg)
     if cfg.is_encoder_decoder:
         return _forward_encdec(params, cfg, tokens, frames, cache, None, False)
     x = embed_apply(params["embed"], tokens)
@@ -301,6 +360,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
+    if cfg.is_ssm or cfg.is_hybrid:
+        for p, c, is_attn in _ssm_layers(params, cfg, cache):
+            if is_attn:
+                x, _, _ = B.attn_block_full(p, cfg, x, positions, False, c, False, None,
+                                            "dense", False)
+            else:
+                x, _ = B.mamba_block_full(p, cfg, x, c)
+        return _head(params, cfg, x), cache, {}
 
     def block(p, x, c, local, is_moe, plc, st):
         return B.attn_block_full(p, cfg, x, positions, local, c, is_moe, plc,
@@ -322,12 +389,19 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_pos, *,
     token: (B, 1) int; cache: ``init_cache``'s tree, updated IN PLACE;
     cache_pos: (B,) next write position per row; ``mla_absorb`` picks MLA's
     latent-space decode.  Returns (logits (B,V), cache, aux)."""
-    _check_supported(cfg)
     if cfg.is_encoder_decoder:
         logits, cache, aux = _forward_encdec(params, cfg, token, None, cache,
                                              cache_pos, True)
         return logits[:, -1], cache, aux
     x = embed_apply(params["embed"], token)
+    if cfg.is_ssm or cfg.is_hybrid:
+        for p, c, is_attn in _ssm_layers(params, cfg, cache):
+            if is_attn:
+                x, _, _ = B.attn_block_decode(p, cfg, x, c, cache_pos, False, False, None,
+                                              "dense", False)
+            else:
+                x, _ = B.mamba_block_decode(p, cfg, x, c)
+        return _head(params, cfg, x)[:, -1], cache, {}
 
     def block(p, x, c, local, is_moe, plc, st):
         return B.attn_block_decode(p, cfg, x, c, cache_pos, local, is_moe, plc,
@@ -347,7 +421,6 @@ def decode_step_paged(params, cfg: ModelConfig, token, pages, block_tables,
     "k_scale"/"v_scale": (L,P)}, updated IN PLACE; block_tables: (B, NB)
     int32; lengths: (B,) tokens resident per row.  Returns (logits (B,V),
     pages, aux)."""
-    _check_supported(cfg)
     check_paged(cfg)
     x = embed_apply(params["embed"], token)
 

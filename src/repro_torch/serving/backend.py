@@ -7,7 +7,9 @@ expert-weight relocation when the expert level fires.  Every scheduling
 *decision* (admission, preemption, completion) is made by
 core/scheduler.py; this module only executes them.  Prompts are padded to power-of-two buckets, as
 the reference pads them for its jit cache, so that MoE capacities (which
-depend on the token count) match the reference.
+depend on the token count) match the reference.  The padded row is
+prefilled whole, so an SSM's decode state has run through the pad tokens,
+as the reference's has (ROADMAP.md, Queue 3).
 
 Timing is logical: ``step_time`` returns the caller-supplied ``now``.
 """

@@ -1,9 +1,11 @@
 """KV-cache management of the port, ported from ``repro.serving.kvcache``.
 
 Three layers:
-  * ``SlotKVCache`` — fixed decode slots: one contiguous (L, B, S, Hkv, D)
-    cache over ``models.model.init_cache`` with per-slot occupancy.
-    ``usage()`` is the KV-usage signal Alg. 1 reads.
+  * ``SlotKVCache`` — fixed decode slots: batch row i of every leaf of
+    ``models.model.init_cache`` (an attention stack's (L, B, S, Hkv, D)
+    K/V, an SSM's per-layer state and conv window, a hybrid's both) with
+    per-slot occupancy.  ``usage()`` is the KV-usage signal Alg. 1 reads;
+    for an arch without attention layers it is state-slot occupancy.
   * ``PagedKVCache`` — vLLM-style paged device cache: a global pool of
     ``block_size``-token pages, per-slot block tables, refcounted
     copy-on-write prefix sharing keyed by ``core.prefix_cache.block_hashes``,

@@ -37,7 +37,6 @@ from repro_torch.serving import kvcache as TKV
 from repro_torch.serving.engine import Engine
 
 ARCHS = ("gemma2-2b", "qwen2-72b", "granite-3-8b", "granite-20b", "internvl2-26b")
-UNSUPPORTED = ("mamba2-370m", "zamba2-1.2b")
 TOL = dict(rtol=2e-4, atol=2e-4)
 MAX_SEQ = 64
 PROMPTS = (12, 19)          # both past the smoke window of 8
@@ -247,16 +246,6 @@ def test_local_layers_never_launch_the_paged_kernel(monkeypatch):
     assert len(calls) == n_global == tc.num_layers // 2
     full = tc.replace(num_layers=26)
     assert sum(not full.layer_is_local(i) for i in range(26)) == 13
-
-
-@pytest.mark.parametrize("arch", UNSUPPORTED)
-def test_unported_families_raise(arch):
-    """Registered for the cost model, not yet runnable: the model raises and
-    names the ROADMAP item that brings SSM and hybrid stacks."""
-    tc = get_smoke_config(arch)
-    assert tc.total_params() > 0
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TM.init_params(tc, seed=0, device="cpu")
 
 
 # --- gemma2 through both packages' engines ----------------------------------------

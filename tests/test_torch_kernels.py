@@ -830,8 +830,8 @@ def test_port_imports_neither_jax_nor_reference():
     the reference package and ml_dtypes (which JAX registers with numpy) out
     of sys.modules; the expert level, the slot cache, both new kernels, the
     workloads and the cluster plane (dispatch, cluster, drills) are among
-    the modules walked, and so are the simulator plane and every config of
-    the architecture registry."""
+    the modules walked, and so are the simulator plane, the Mamba2 mixer
+    and every config of the architecture registry."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -858,7 +858,8 @@ need = {"repro_torch.core.placement", "repro_torch.core.affinity",
         "repro_torch.configs.granite_3_8b", "repro_torch.configs.internvl2_26b",
         "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.whisper_medium",
         "repro_torch.configs.llama4_maverick_400b_a17b",
-        "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b"}
+        "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b",
+        "repro_torch.models.mamba2"}
 assert need <= set(sys.modules), need - set(sys.modules)
 from repro_torch.configs import ASSIGNED_ARCHS, list_archs, get_config
 assert len(ASSIGNED_ARCHS) == 10 and len(list_archs()) == 11
