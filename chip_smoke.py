@@ -112,9 +112,27 @@
    share, host waits a decode step), and kernel 4 held against its plain
    version on zamba2's shared-attention cache during the run and timed on
    it beside SDPA.  Launch counts must match the path.
-9. Prints the card's name and power limit, one JSON line listing the
-   kernels (with the cluster, families, variants and ssm runs' launches
-   beside the main path's), and as the last line
+9. Trains through ``repro_torch.launch`` (AdamW with f32 moments,
+   warm-up 10, clip 1.0, ``TokenStream(seed=0)`` data): T0, one f32 train
+   step of the smoke qwen3 and mamba2 configs on the card against the CPU
+   (loss, grad norm, every param and moment within 2e-4), which must reject
+   three faulty CPU steps (weight decay on vectors, no bias correction, the
+   router aux loss dropped); T1, qwen3-30b-a3b at full width cut to 4
+   layers, bf16, 8 x 128 tokens, dense dispatch: 8 timed steps on the
+   stream (ms a step split into forward + backward and optimizer, trained
+   tokens/s, peak memory), then 8 on one batch, where the loss must fall by
+   0.1 and two steps at lr 0 must not, and one traced step; T2,
+   mamba2-370m at full depth, bf16, 8 x 512 tokens with remat: 4 timed
+   steps with a checkpoint after step 2, restored into fresh tensors and
+   run on, bit-identical to the uninterrupted run (a checkpoint without its
+   manifest is ignored, a leaf of the wrong shape refused), and remat on
+   and off at batch 2 with the same loss and grad norm; T3, ``python -m
+   repro_torch.launch.train`` run for 6 steps and rerun to 10 in a
+   subprocess, which must resume from step 6 and end where an
+   uninterrupted run ends.  Training must launch none of the kernels.
+10. Prints the card's name and power limit, one JSON line listing the
+   kernels (with the cluster, families, variants, ssm and train runs'
+   launches beside the main path's), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -126,11 +144,13 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 ARCH = "qwen3-30b-a3b"
@@ -1764,6 +1784,7 @@ FAMILY_DEPTHS = (("qwen2-72b", 4), ("granite-20b", 4), ("granite-3-8b", 4))
 
 def _family_params(torch, cfg, label: str):
     from repro_torch.models import model as M
+    from repro_torch.tree import leaves
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
@@ -1787,7 +1808,7 @@ def _family_params(torch, cfg, label: str):
         f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim} d_ff={cfg.d_ff} vocab="
         f"{cfg.vocab_size} qkv_bias={cfg.qkv_bias} softcaps={cfg.attn_logit_softcap}/"
         f"{cfg.final_logit_softcap} window={cfg.sliding_window} global_layers="
-        f"{_n_global(cfg)}{extra}: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
+        f"{_n_global(cfg)}{extra}: {sum(p.numel() for p in leaves(params)) / 1e9:.3f} B "
         f"parameters, init {time.perf_counter() - t0:.3f} s, device memory "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     return params
@@ -2085,12 +2106,6 @@ SSM_LONG_ROW = 16383                        # bucket 16384: 64 chunks of 256
 SSM_LONG_STEPS = 32                         # decode steps after it, inside max_seq
 
 
-def _tree_to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
-    return tree.to(device)
-
-
 def _ssm_forced(torch, cfg, params, toks, n: int, device):
     """Prefill ``toks[:n]`` unpadded into a fresh cache on ``device``, then
     decode ``toks[n:]`` one token a step (teacher-forced).  Returns (the
@@ -2138,12 +2153,14 @@ def _ssm_gates(torch, cfg32, params, label: str) -> dict:
     {gate: max abs err}."""
     import numpy as np
     from repro_torch.models import mamba2 as m2
+    from repro_torch.tree import map_tree
 
     n = SSM_GATE_PROMPT
     toks = np.random.default_rng(SEED + 7).integers(0, cfg32.vocab_size, n + SSM_GATE_STEPS)
     tol = TOL["float32"]
     pre, dec = _ssm_forced(torch, cfg32, params, toks, n, DEVICE)
-    cpu_pre, cpu_dec = _ssm_forced(torch, cfg32, _tree_to(params, "cpu"), toks, n, "cpu")
+    cpu_pre, cpu_dec = _ssm_forced(torch, cfg32, map_tree(lambda t: t.cpu(), params), toks,
+                                   n, "cpu")
     errs = {"card vs cpu": max(
         check_close(f"ssm{label}: prefill logits, card vs CPU", pre.cpu(), cpu_pre, tol),
         check_close(f"ssm{label}: decode logits, card vs CPU", dec.cpu(), cpu_dec, tol))}
@@ -2185,6 +2202,7 @@ def _ssm_engine(torch, cfg, params, label: str, reqs, *, trace: bool = False,
     the peak device memory."""
     from repro_torch.kernels import ops, ref
     from repro_torch.serving.engine import Engine
+    from repro_torch.tree import leaves
 
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
@@ -2230,7 +2248,7 @@ def _ssm_engine(torch, cfg, params, label: str, reqs, *, trace: bool = False,
     if run["launches"] != want:
         raise AssertionError(f"engine[{label}]: launches {run['launches']} != path {want}")
     run.update(snapshot=live["snapshot"], peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               cache_bytes=sum(t.numel() * t.element_size() for t in _leaves(eng.kv.cache)))
+               cache_bytes=sum(t.numel() * t.element_size() for t in leaves(eng.kv.cache)))
     log(f"engine[{label}]: state dtype={state.dtype} usage_checks={live['usage']} "
         f"flash_decode_live_checks={live['fd']} flash_decode_live_max_abs_err="
         f"{live['fd_err']:.3e} slot_cache_bytes={run['cache_bytes']} "
@@ -2333,11 +2351,413 @@ def ssm_phase(torch) -> dict:
     return runs
 
 
-def _report_trace(prof, wall_s: float, label: str, seen: dict) -> list:
+# ----------------------------------------------------------------------------- train
+
+# T0's optimizer: lr 1e-2 held flat (no warm-up, a cosine horizon of 1e9
+# steps), so one step moves a weight by ~1e-2, 50x the 2e-4 gate (the
+# train() settings' first step moves it by 3e-5, below the gate); eps 1e-3
+# keeps the first step's g / (|g| + eps) smooth in g: at eps 1e-8 a weight
+# whose f32 gradient cancels to ~1e-8 moves by up to lr x that gradient's
+# rounding error relative to eps: 8.9e-4 on an H100 against the CPU, where
+# the moments agreed within 6.3e-9
+TRAIN_GATE_OPT = dict(lr=1e-2, eps=1e-3, warmup_steps=0, decay_steps=10**9,
+                      moment_dtype="float32")
+TRAIN_GATE_SHAPE = (2, 32)                  # T0: batch x seq
+TRAIN_GATE_STEP_LOST = 10**4                # step count at which both corrections are 1 in f32
+T1_DEPTH, T1_SHAPE, T1_STEPS = 4, (8, 128), 8
+T1_MARGIN = 0.1                             # nats the loss on one batch must fall in T1_STEPS
+T2_SHAPE, T2_STEPS, T2_GATE_BATCH = (8, 512), 4, 2
+# T3's runs stay inside the 10-step warm-up: launch.train sets the cosine
+# horizon to its own --steps (as the reference's train() does), so past the
+# warm-up a run resumed with another --steps follows another schedule
+T3_STEPS, T3_TOTAL, T3_EVERY = 6, 10, 3
+
+
+def _train_opt(steps: int, **kw):
+    """The reference train()'s AdamW settings for a run of ``steps``."""
+    from repro_torch.training.optimizer import AdamWConfig
+    return AdamWConfig(**dict(dict(moment_dtype="float32", warmup_steps=10, grad_clip=1.0,
+                                   decay_steps=max(steps, 2)), **kw))
+
+
+def _train_batch(torch, cfg, data, step: int, device) -> dict:
+    """``data.batch_at(step)`` on ``device``, with identity placements for
+    a MoE, as ``launch.train`` feeds its step."""
+    from repro_torch.launch import steps as S
+    batch = {k: torch.from_numpy(v).to(device) for k, v in data.batch_at(step).items()}
+    if cfg.is_moe:
+        batch["placements"] = S.placements_input(cfg, device)
+    return batch
+
+
+def _stream(cfg, shape):
+    from repro_torch.training.data import DataConfig, TokenStream
+    return TokenStream(DataConfig(vocab_size=cfg.vocab_size, global_batch=shape[0],
+                                  seq_len=shape[1], seed=0))
+
+
+def _decay_on_vectors(params, grads, state, cfg):
+    """The port's AdamW update with every vector and scalar leaf viewed as a
+    (1, n) matrix, so weight decay reaches it: a fault for T0's gate."""
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import map_tree
+    flat = lambda t: t.reshape(1, -1) if t.ndim < 2 else t
+    st = O.AdamWState(state.step, map_tree(flat, state.m), map_tree(flat, state.v))
+    p, st, om = O.adamw_update(map_tree(flat, params), map_tree(flat, grads), st, cfg)
+    back = lambda new, old: new.reshape(old.shape)
+    return (map_tree(back, p, params),
+            O.AdamWState(st.step, map_tree(back, st.m, params), map_tree(back, st.v, params)),
+            om)
+
+
+def _train_state_excess(got, want) -> tuple:
+    """(max abs err, max excess over rtol = atol = 2e-4, the quantity with
+    that excess) of one train step's loss, grad norm, params and moments:
+    ``got`` against ``want``, both (params, state, metrics)."""
+    from repro_torch.tree import flatten_with_paths
+    pairs = [("loss", got[2]["loss"], want[2]["loss"]),
+             ("grad_norm", got[2]["grad_norm"], want[2]["grad_norm"])]
+    for name, a, b in (("param", got[0], want[0]), ("m", got[1].m, want[1].m),
+                       ("v", got[1].v, want[1].v)):
+        pairs += [(f"{name} {path}", x, y) for (path, x), (_, y) in
+                  zip(flatten_with_paths(a), flatten_with_paths(b))]
+    errs = [(*max_excess(a.cpu(), b.cpu(), TOL["float32"], TOL["float32"]), name)
+            for name, a, b in pairs]
+    worst = max(errs, key=lambda e: e[1])
+    return max(e[0] for e in errs), worst[1], worst[2]
+
+
+def _train_gates(torch, arch: str) -> None:
+    """T0: one f32 train step of ``arch``'s smoke config on the card against
+    the same step on the CPU (same weights, batch and optimizer), within
+    2e-4 on the loss, grad norm, every param and every moment; then three
+    faulty steps on the CPU, each outside that gate: weight decay on
+    vectors, no bias correction (the port's update from a step count of
+    10^4, where both corrections are 1 in f32; the flat lr does not change
+    with the step) and the router aux loss dropped (MoE only).  A stacked
+    layer's vectors are matrices of the tree (layers x width), which the
+    reference decays too; the unstacked ones (the final norm's scale) are
+    zeros at init, so the weights' 1-D leaves are drawn from N(0, 1) here
+    for the first fault to show."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import map_tree
+
+    cfg = get_smoke_config(arch)
+    opt = O.AdamWConfig(**TRAIN_GATE_OPT)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    params = map_tree(lambda t: torch.randn(t.shape, generator=gen) if t.ndim == 1 else t,
+                      M.init_params(cfg, seed=SEED + 1, device="cpu"))
+    data = _stream(cfg, TRAIN_GATE_SHAPE)
+
+    def step(device, cfg=cfg, state_step: int = 0):
+        p = map_tree(lambda t: t.to(device), params)
+        st = O.init_adamw(p, opt)
+        st = st._replace(step=st.step + state_step)
+        fn = S.make_train_step(cfg, None, None, opt, remat=False)[0]
+        return fn(p, st, _train_batch(torch, cfg, data, 0, device))
+
+    want = step("cpu")
+    err, excess, worst = _train_state_excess(step(DEVICE), want)
+    label = f"train[T0 {arch} smoke f32]"
+    if excess > 0:
+        raise AssertionError(f"{label}: card step disagrees with the CPU's (max abs err "
+                             f"{err:.3e}, gate 2e-4, worst {worst})")
+    log(f"{label}: card vs CPU loss {float(want[2]['loss']):.6f} grad_norm "
+        f"{float(want[2]['grad_norm']):.6f}, max abs err over loss, grad norm, params and "
+        f"moments {err:.3e} (gate 2e-4)")
+    faults = {"weight decay on vectors": lambda: _with(S, "adamw_update", _decay_on_vectors,
+                                                      lambda: step("cpu")),
+              "no bias correction": lambda: step("cpu", state_step=TRAIN_GATE_STEP_LOST)}
+    if cfg.is_moe:
+        faults["router aux loss dropped"] = lambda: step(
+            "cpu", cfg=cfg.replace(router_aux_coef=0.0, router_z_coef=0.0))
+    for name, run in faults.items():
+        ferr, fexcess, fworst = _train_state_excess(run(), want)
+        log(f"{label}: fault '{name}' max abs err {ferr:.3e}, excess over the gate "
+            f"{fexcess:.3e} ({fworst})")
+        if fexcess <= 0:
+            raise AssertionError(f"{label}: fault '{name}' falls inside the gate")
+
+
+def _with(obj, name: str, value, fn):
+    """``fn()`` with ``obj.name`` set to ``value``."""
+    with mock.patch.object(obj, name, value):
+        return fn()
+
+
+def _timed_steps(torch, fn, carry: list, batches, label: str) -> list:
+    """Run ``fn`` over ``batches`` from ``carry`` = [params, state], which
+    each step's output replaces (so that no caller keeps an older state
+    alive: the update holds old and new state at once), timing each step on
+    the host clock (synchronised), split at the optimizer call into
+    forward + backward and optimizer.  Returns the per-step records."""
+    from repro_torch.launch import steps as S
+    upd = S.adamw_update
+    mark = {}
+
+    def timed_update(*a, **kw):
+        torch.cuda.synchronize()
+        mark["opt0"] = time.perf_counter()
+        out = upd(*a, **kw)
+        torch.cuda.synchronize()
+        mark["opt1"] = time.perf_counter()
+        return out
+
+    records = []
+    with mock.patch.object(S, "adamw_update", timed_update):
+        for batch in batches:
+            params, state = carry
+            carry.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, m = fn(params, state, batch)
+            carry += [params, state]
+            del params, state
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            t1 = time.perf_counter()
+            rec = dict(loss=loss, grad_norm=gnorm, lr=float(m["lr"]), ms=1e3 * (t1 - t0),
+                       fwd_bwd_ms=1e3 * (mark["opt0"] - t0),
+                       opt_ms=1e3 * (mark["opt1"] - mark["opt0"]))
+            if not (math.isfinite(loss) and math.isfinite(gnorm)):
+                raise AssertionError(f"train[{label}]: non-finite loss or grad norm {rec}")
+            log(f"train[{label}]: step {len(records)} loss {loss:.4f} grad_norm {gnorm:.4f} "
+                f"lr {rec['lr']:.3e} ms {rec['ms']:.3f} (forward+backward "
+                f"{rec['fwd_bwd_ms']:.3f}, optimizer {rec['opt_ms']:.3f})")
+            records.append(rec)
+    return records
+
+
+def _step_summary(torch, records, tokens: int, label: str, last: int) -> None:
+    tail = records[-last:]
+    med = {k: statistics.median(r[k] for r in tail) for k in ("ms", "fwd_bwd_ms", "opt_ms")}
+    log(f"train[{label}]: median of the last {len(tail)} steps: {med['ms']:.3f} ms a step "
+        f"(forward+backward {med['fwd_bwd_ms']:.3f}, optimizer {med['opt_ms']:.3f}), "
+        f"{1e3 * tokens / med['ms']:.1f} trained tokens/s, peak_device_memory_gib="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+
+
+def _train_t1(torch) -> None:
+    """T1: qwen3-30b-a3b at full width, 4 layers, bf16, batch 8 x 128 with
+    dense dispatch: T1_STEPS timed steps on the stream, T1_STEPS more on
+    batch 0 repeated, where the loss must fall by T1_MARGIN, which two
+    steps at lr 0 (the fault) must not; then one traced step."""
+    from repro_torch.configs import at_depth, get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.training import optimizer as O
+
+    full = get_config(ARCH)
+    cfg = at_depth(full, T1_DEPTH)
+    label = f"T1 {ARCH}"
+    log(f"train[{label}]: reduced: num_layers {full.num_layers} -> {cfg.num_layers}; "
+        f"batch {T1_SHAPE[0]} x seq {T1_SHAPE[1]}, {cfg.dtype}, dense dispatch")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    opt = _train_opt(2 * T1_STEPS)
+    carry = [_family_params(torch, cfg, label)]
+    carry.append(O.init_adamw(carry[0], opt))
+    fn = S.make_train_step(cfg, None, None, opt, remat=False)[0]
+    data = _stream(cfg, T1_SHAPE)
+    tokens = T1_SHAPE[0] * T1_SHAPE[1]
+    recs = _timed_steps(torch, fn, carry, (_train_batch(torch, cfg, data, i, DEVICE)
+                                           for i in range(T1_STEPS)), label)
+    _step_summary(torch, recs, tokens, label, T1_STEPS - 2)
+    batch0 = _train_batch(torch, cfg, data, 0, DEVICE)
+    rep = _timed_steps(torch, fn, carry, [batch0] * T1_STEPS, f"{label} batch 0")
+    drop = rep[0]["loss"] - rep[-1]["loss"]
+    fn0 = S.make_train_step(cfg, None, None, _train_opt(2 * T1_STEPS, lr=0.0), remat=False)[0]
+    lr0 = _timed_steps(torch, fn0, carry, [batch0] * 2, f"{label} lr 0")
+    drop0 = lr0[0]["loss"] - lr0[1]["loss"]
+    log(f"train[{label}]: loss on batch 0 fell {drop:.4f} in {T1_STEPS} steps "
+        f"({rep[0]['loss']:.4f} -> {rep[-1]['loss']:.4f}); fault lr 0: {drop0:.4f} in 2 "
+        f"steps; margin {T1_MARGIN}")
+    if not drop > T1_MARGIN >= drop0:
+        raise AssertionError(f"train[{label}]: the loss fell {drop:.4f}, lr 0 {drop0:.4f}: "
+                             f"not separated by the margin {T1_MARGIN}")
+
+    def traced(trace: bool):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*carry, batch0)
+            float(out[2]["loss"])
+            wall = time.perf_counter() - t0
+        del out
+        rows = _report_trace(prof, wall, f"{label} step", None)
+        if not rows:
+            raise EmptyTrace(f"trace[{label} step]: the profiler recorded no device event")
+
+    _retraced(traced)
+    carry.clear()
+
+
+def _train_t2(torch) -> None:
+    """T2: mamba2-370m at full depth (48 layers), bf16, batch 8 x 512 (the
+    SSD's 256-position chunks cross a boundary in the backward), remat on:
+    T2_STEPS timed steps with a checkpoint after step 2, restored into fresh
+    tensors and run to the end, which must equal the uninterrupted run bit
+    for bit (faults: a checkpoint without its manifest is ignored, a leaf
+    of the wrong shape is refused); remat on and off at batch 2 must give
+    the same loss and grad norm."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.training import checkpoint as C
+    from repro_torch.training import optimizer as O
+    from repro_torch.tree import leaves
+
+    cfg = get_config(MAMBA2)
+    label = f"T2 {MAMBA2}"
+    log(f"train[{label}]: no cut ({cfg.num_layers} layers); batch {T2_SHAPE[0]} x seq "
+        f"{T2_SHAPE[1]}, {cfg.dtype}, remat on")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params = _family_params(torch, cfg, label)
+    opt = _train_opt(T2_STEPS)
+    fn = S.make_train_step(cfg, None, None, opt)[0]               # remat=True
+    data = _stream(cfg, T2_SHAPE)
+    batches = [_train_batch(torch, cfg, data, i, DEVICE) for i in range(T2_STEPS)]
+    with tempfile.TemporaryDirectory() as d:
+        run = [params, O.init_adamw(params, opt)]
+        recs = _timed_steps(torch, fn, run, batches[:2], label)
+        C.save_checkpoint(d, 2, tuple(run))
+        recs += _timed_steps(torch, fn, run, batches[2:], label)
+        _step_summary(torch, recs, T2_SHAPE[0] * T2_SHAPE[1], label, T2_STEPS - 1)
+        fresh = (M.init_params(cfg, seed=SEED + 7, device=DEVICE), O.init_adamw(params, opt))
+        (Path(d) / "step_00000009").mkdir()
+        (Path(d) / "step_00000009" / "leaf_00000.npy").write_bytes(b"junk")
+        if C.latest_step(d) != 2:
+            raise AssertionError(f"train[{label}]: latest_step {C.latest_step(d)} trusts a "
+                                 "checkpoint without its manifest")
+        step, resumed = C.restore_checkpoint(d, fresh)
+        del fresh
+        _refuses_wrong_shape(C, d, resumed, label)
+        resumed = list(resumed)
+        rec2 = _timed_steps(torch, fn, resumed, batches[2:],
+                            f"{label} resumed from step {step}")
+    same = ([r["loss"] for r in rec2] == [r["loss"] for r in recs[2:]]
+            and all(torch.equal(a, b) for a, b in zip(leaves(resumed), leaves(run))))
+    log(f"train[{label}]: resumed from step {step}: steps 3-{T2_STEPS} losses and every "
+        f"param and moment bit-identical to the uninterrupted run: {same}")
+    if not same:
+        raise AssertionError(f"train[{label}]: the resumed run differs from the "
+                             "uninterrupted one")
+    del run, resumed
+    small = {k: v[:T2_GATE_BATCH] for k, v in batches[0].items()}
+    out = {}
+    for remat in (True, False):
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        f = S.make_train_step(cfg, None, None, opt, remat=remat)[0]
+        _, _, m = f(params, O.init_adamw(params, opt), small)
+        out[remat] = (float(m["loss"]), float(m["grad_norm"]))
+        log(f"train[{label}]: batch {T2_GATE_BATCH}, remat {remat}: loss {out[remat][0]!r} "
+            f"grad_norm {out[remat][1]!r}, peak_device_memory_gib="
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out[True], out[False]))
+    log(f"train[{label}]: remat on vs off: bit-identical {out[True] == out[False]}, max "
+        f"relative difference {rel:.3e}")
+    if rel > 1e-6:
+        raise AssertionError(f"train[{label}]: remat changes the numbers ({rel:.3e})")
+    del params
+
+
+def _refuses_wrong_shape(C, directory, state, label: str) -> None:
+    """The fault of T2's restore: a ``like`` tree whose first leaf is one
+    column short must make ``restore_checkpoint`` raise."""
+    from repro_torch.tree import leaves, unflatten
+    like = leaves(state)
+    try:
+        C.restore_checkpoint(directory, unflatten(state, [like[0][..., :-1]] + like[1:]))
+    except ValueError as exc:
+        log(f"train[{label}]: fault: a leaf of the wrong shape is refused ({exc})")
+        return
+    raise AssertionError(f"train[{label}]: restore took a leaf of the wrong shape")
+
+
+def _train_t3(torch) -> None:
+    """T3: the entry point as a user runs it, in a subprocess on the card:
+    ``python -m repro_torch.launch.train`` for T3_STEPS steps with a
+    checkpoint every T3_EVERY, then again to T3_TOTAL, which must resume
+    from step T3_STEPS; its first and last losses and its final checkpoint
+    must equal an uninterrupted run's (in this process)."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.launch.train import train
+
+    label = f"T3 {ARCH} smoke"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as d:
+        cut, whole = Path(d) / "cut", Path(d) / "whole"
+        outs = []
+        for steps in (T3_STEPS, T3_TOTAL):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
+                   "--steps", str(steps), "--ckpt-dir", str(cut), "--ckpt-every",
+                   str(T3_EVERY), "--device", DEVICE]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"train[{label}]: {' '.join(cmd[1:])} exited "
+                                     f"{run.returncode}: {run.stderr[-2000:]}")
+            log(f"train[{label}]: {' '.join(cmd[2:])}: {time.perf_counter() - t0:.1f} s")
+            for line in run.stdout.splitlines():
+                log(f"  {line}")
+            outs.append(run.stdout)
+        if f"[train] resumed from step {T3_STEPS}" not in outs[1]:
+            raise AssertionError(f"train[{label}]: the rerun did not resume from step "
+                                 f"{T3_STEPS}")
+        losses = train(ARCH, steps=T3_TOTAL, ckpt_dir=str(whole), ckpt_every=100,
+                       log_every=10**6, device=DEVICE)
+        want = (f"first loss {losses[T3_STEPS]:.4f} last loss {losses[-1]:.4f}")
+        a, b = (c / f"step_{T3_TOTAL:08d}" for c in (cut, whole))
+        files = sorted(p.name for p in a.glob("leaf_*.npy"))
+        same = files == sorted(p.name for p in b.glob("leaf_*.npy")) and all(
+            np.array_equal(np.load(a / f), np.load(b / f)) for f in files)
+        log(f"train[{label}]: uninterrupted {T3_TOTAL}-step run in this process: {want}; "
+            f"the resumed run's final checkpoint ({len(files)} leaves) bit-identical: {same}")
+        if want not in outs[1] or not same:
+            raise AssertionError(f"train[{label}]: the resumed run differs from the "
+                                 "uninterrupted one")
+
+
+def train_phase(torch) -> dict:
+    """Training through ``repro_torch.launch``: the f32 gates (T0), qwen3
+    at full width (T1), mamba2-370m at full depth (T2) and the entry point
+    with a resume (T3).  Returns each part's kernel launches, which must be
+    0: training runs the dense forward, which reaches no kernel."""
+    from repro_torch import kernels as K
+
+    _free(torch)
+    log(f"train phase: device memory held on entry "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    t0 = time.perf_counter()
+    runs = {}
+    parts = (("T0", lambda: [_train_gates(torch, a) for a in (ARCH, MAMBA2)]),
+             ("T1", lambda: _train_t1(torch)), ("T2", lambda: _train_t2(torch)),
+             ("T3", lambda: _train_t3(torch)))
+    for name, part in parts:
+        t1 = time.perf_counter()
+        K.reset_launch_counts()
+        part()
+        runs[name] = {fn.__name__: fn.launches for fn in K.KERNELS}
+        _free(torch)
+        log(f"train phase: {name} {time.perf_counter() - t1:.1f} s, launches {runs[name]}")
+    if any(n for counts in runs.values() for n in counts.values()):
+        raise AssertionError(f"train phase: training launched a kernel: {runs}")
+    log(f"train phase: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def _report_trace(prof, wall_s: float, label: str, seen: dict | None) -> list:
     """Device busy share over the traced run, the host's synchronising
-    runtime calls (the stream synchronizes also net of the one a call that
-    this script's finiteness checks add, over ``seen``'s prefill and decode
-    calls), and the kernels that took the most device time
+    runtime calls (for an engine run, the stream synchronizes also net of
+    the one a call that this script's finiteness checks add, over
+    ``seen``'s prefill and decode calls), and the kernels that took the most device time
     (summed over launches), with the decode-attention split and merge
     passes, the router and the host-to-device copies listed wherever they
     rank."""
@@ -2364,11 +2784,12 @@ def _report_trace(prof, wall_s: float, label: str, seen: dict) -> list:
              if ev.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
                            "cudaMemcpyAsync")}
     log(f"trace[{label}]: host runtime calls {waits}")
-    calls = seen["prefill"] + seen["decode"]
-    net = waits.get("cudaStreamSynchronize", 0) - calls
-    log(f"trace[{label}]: cudaStreamSynchronize net of the finiteness checks {net} over "
-        f"{seen['prefill']} prefills and {seen['decode']} decode steps "
-        f"({net / max(calls, 1):.2f} a call)")
+    if seen is not None:
+        calls = seen["prefill"] + seen["decode"]
+        net = waits.get("cudaStreamSynchronize", 0) - calls
+        log(f"trace[{label}]: cudaStreamSynchronize net of the finiteness checks {net} "
+            f"over {seen['prefill']} prefills and {seen['decode']} decode steps "
+            f"({net / max(calls, 1):.2f} a call)")
     gemm_ms = sum(us for us, _, key in rows if "tc_gemm_kernel" in key) / 1e3
     if gemm_ms:
         log(f"trace[{label}]: moe_gemm (tc_gemm_kernel) {gemm_ms:.3f} ms of "
@@ -2410,6 +2831,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
     from repro_torch.models import model as M
+    from repro_torch.tree import leaves
 
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
@@ -2433,7 +2855,7 @@ def main() -> int:
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=SEED, device=DEVICE)
     torch.cuda.synchronize()
-    log(f"params: {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B parameters, "
+    log(f"params: {sum(p.numel() for p in leaves(params)) / 1e9:.3f} B parameters, "
         f"init {time.perf_counter() - t0:.3f} s")
     main_run = engine_run(torch, cfg, params, n_req=16, max_new=32, kv_quant=None,
                           label="bf16")
@@ -2450,6 +2872,7 @@ def main() -> int:
     families = families_phase(torch)
     variants = variants_phase(torch)
     ssm = ssm_phase(torch)
+    train = train_phase(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2469,22 +2892,13 @@ def main() -> int:
                      "cluster_launches": {run: n[name] for run, n in cluster.items()},
                      "families_launches": {run: n[name] for run, n in families.items()},
                      "variants_launches": {run: n[name] for run, n in variants.items()},
-                     "ssm_launches": {run: n[name] for run, n in ssm.items()}})
+                     "ssm_launches": {run: n[name] for run, n in ssm.items()},
+                     "train_launches": {run: n[name] for run, n in train.items()}})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        tree = list(tree.values())
-    if isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ Every architecture of the reference (the ten assigned ones plus the paper's
 own Qwen3-30B-A3B) is a module exposing CONFIG (the exact published config)
 and smoke_config() (a reduced same-family variant for CPU tests), with the
 values of ``repro.configs``.  All of them feed the simulator's cost model,
-and ``models.model`` runs every one.  The dry-run's input stand-ins and
-shape cells wait for the launch slice.
+and ``models.model`` runs every one.  ``at_depth`` cuts a config's depth
+(chip_smoke's cuts) and ``depth_pair`` gives the reference's two probe
+depths; the dry-run's input stand-ins (``input_specs``, ``dryrun_cells``)
+wait for the sharding slice (ROADMAP.md, Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -49,4 +51,34 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
-__all__ = ["ASSIGNED_ARCHS", "list_archs", "get_config", "get_smoke_config"]
+def depth_pair(cfg: ModelConfig):
+    """Two reduced depths at which the fully-unrolled module is compiled for
+    the roofline measurement; per-step cost is affine in depth, so the full-
+    depth cost is the (exact) linear extrapolation.  Depths are chosen so the
+    layer-pattern period (MoE interleave, gemma2 local/global, zamba2 shared-
+    attn period + epilogue) is preserved.
+    """
+    if cfg.is_hybrid:
+        k = cfg.shared_attn_every
+        epi = cfg.num_layers % k
+        return (k + epi, 2 * k + epi)
+    if cfg.is_moe and cfg.moe_every > 1:
+        return (2 * cfg.moe_every, 4 * cfg.moe_every)
+    if cfg.is_moe and cfg.first_k_dense > 0:
+        return (cfg.first_k_dense + 2, cfg.first_k_dense + 4)
+    if cfg.local_global_period > 1:
+        p = cfg.local_global_period
+        return (2 * p, 4 * p)
+    return (4, 8)
+
+
+def at_depth(cfg: ModelConfig, depth: int) -> ModelConfig:
+    """The same architecture at a reduced layer count (roofline probes)."""
+    kw = {"num_layers": depth}
+    if cfg.is_encoder_decoder:
+        kw["num_encoder_layers"] = depth
+    return cfg.replace(**kw)
+
+
+__all__ = ["ASSIGNED_ARCHS", "list_archs", "get_config", "get_smoke_config",
+           "depth_pair", "at_depth"]

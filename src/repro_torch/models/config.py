@@ -3,11 +3,14 @@
 The same frozen dataclass and field names as the reference, so one config
 file reads the same in both packages; ``adtype`` returns a torch dtype.  The
 parameter counts the simulator's cost model reads are the reference's.  The
-dry-run shape cells of the reference wait for the launch slice.
+shape cells are the reference's table (the train step takes a cell);
+``cell_applicable`` belongs to the dry-run and waits for the sharding slice
+(ROADMAP.md, Queue 1 item 16).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 import torch
 
@@ -211,3 +214,20 @@ def _param_count(cfg: ModelConfig, active_only: bool) -> int:
         cross = cfg.num_layers * per_layer
         total_layers += enc + cross
     return int(emb + total_layers)
+
+
+# Input shape cells assigned to every architecture -------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPE_CELLS: Tuple[ShapeCell, ...] = (
+    ShapeCell("train_4k", 4_096, 256, "train"),
+    ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    ShapeCell("decode_32k", 32_768, 128, "decode"),
+    ShapeCell("long_500k", 524_288, 1, "decode"),
+)

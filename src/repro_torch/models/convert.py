@@ -5,6 +5,8 @@ PyTorch cannot replay ``jax.random``, so every numerics comparison feeds
 both packages the reference's weights through this bridge.  ``bfloat16``
 arrays (numpy's ``ml_dtypes`` extension type, which ``torch.from_numpy``
 cannot take) go through float32, which holds every bfloat16 value exactly.
+``adamw_state_from_numpy`` carries the optimizer's state across the same
+way.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devlib
+from repro_torch.training.optimizer import AdamWState
 
 
 def _tensor(a, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -42,3 +45,12 @@ def params_from_numpy(tree: Any, device=None, dtype: Optional[torch.dtype] = Non
         return _tensor(x, dev, dtype)
 
     return conv(tree)
+
+
+def adamw_state_from_numpy(step, m: Any, v: Any, device=None):
+    """The reference's AdamW state (a step count and two moment trees of
+    numpy arrays) as the port's ``AdamWState`` on ``device`` (the card by
+    default), every moment keeping its dtype."""
+    dev = devlib.resolve(device)
+    return AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=dev),
+                      m=params_from_numpy(m, dev), v=params_from_numpy(v, dev))

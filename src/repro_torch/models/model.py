@@ -21,12 +21,23 @@ reused at every call, its mamba blocks as (n_super, k, ...) and
 replaces ``lax.scan``, so each layer's local/global flag is a Python bool
 and only its own attention branch runs (the reference's scan computes both
 branches and selects).
+
+``forward_train`` is the training forward (no cache).  With ``cfg.remat``
+each stack unit runs under ``torch.utils.checkpoint`` (non-reentrant), as
+the reference wraps its scan bodies in ``jax.checkpoint`` with
+``remat_policy="none"`` (nothing saved): each layer of an attention stack
+(the interleaved stack's layers one by one, where the reference
+checkpoints a super-block), each Mamba2 layer and shared-attention call of
+an SSM or hybrid stack, and each decoder layer of whisper.  The other
+policies ("dots", "full") wait for the sharding slice (ROADMAP.md, Queue 1
+item 16).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as devlib
 from repro_torch.models import blocks as B
@@ -290,6 +301,19 @@ def _ssm_layers(params, cfg: ModelConfig, cache) -> Iterator[Tuple[dict, Any, bo
         yield _layer(params["epi_blocks"], j), sub(cache, "epi", j), False
 
 
+def _unit(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``: one stack unit, recomputed in the backward pass
+    instead of saved when ``cfg.remat`` is set."""
+    if not cfg.remat:
+        return fn(*args)
+    if cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy {cfg.remat_policy!r}: only 'none' (the policy "
+            "make_train_step sets) is ported; the others wait for the sharding "
+            "slice (ROADMAP.md, Queue 1 item 16)")
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
 def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, block):
     """Run ``block(p, x, c, local, is_moe, placement, stats)`` over the
     stack; the placement stack and the stats are indexed by MoE layer.
@@ -298,7 +322,7 @@ def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, bloc
     auxs, n_moe = [], 0
     for p, c, local, is_moe in _attn_layers(params, cfg, cache):
         plc = _placement(cfg, pstack, n_moe) if is_moe else None
-        x, _, aux = block(p, x, c, local, is_moe, plc, stats and is_moe)
+        x, _, aux = _unit(cfg, block, p, x, c, local, is_moe, plc, stats and is_moe)
         if is_moe:
             auxs.append(aux)
             n_moe += 1
@@ -338,7 +362,7 @@ def _forward_encdec(params, cfg: ModelConfig, tokens, frames, cache, cache_pos,
         if decode:
             x, _ = B.cross_block_decode(p, cfg, x, c, cache_pos, memory)
         else:
-            x, _ = B.cross_block_full(p, cfg, x, positions, memory, c)
+            x, _ = _unit(cfg, B.cross_block_full, p, cfg, x, positions, memory, c)
     if cache is not None and not decode:
         cache["memory"] = memory
     return _head(params, cfg, x), cache, {}
@@ -363,10 +387,10 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     if cfg.is_ssm or cfg.is_hybrid:
         for p, c, is_attn in _ssm_layers(params, cfg, cache):
             if is_attn:
-                x, _, _ = B.attn_block_full(p, cfg, x, positions, False, c, False, None,
-                                            "dense", False)
+                x, _, _ = _unit(cfg, B.attn_block_full, p, cfg, x, positions, False, c,
+                                False, None, "dense", False)
             else:
-                x, _ = B.mamba_block_full(p, cfg, x, c)
+                x, _ = _unit(cfg, B.mamba_block_full, p, cfg, x, c)
         return _head(params, cfg, x), cache, {}
 
     def block(p, x, c, local, is_moe, plc, st):
@@ -375,6 +399,13 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
 
     x, aux = _run_stack(params, cfg, x, cache, placements, stats, block)
     return _head(params, cfg, x), cache, aux
+
+
+def forward_train(params, cfg: ModelConfig, tokens, **kw):
+    """The training forward: ``forward`` with no cache.  Returns (logits,
+    aux)."""
+    logits, _, aux = forward(params, cfg, tokens, cache=None, **kw)
+    return logits, aux
 
 
 def prefill(params, cfg: ModelConfig, tokens, cache, **kw):

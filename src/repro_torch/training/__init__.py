@@ -1,1 +1,2 @@
-"""Training-side helpers of the port (int8 quantisation so far)."""
+"""Training of the port: the token stream, AdamW, checkpoints and
+gradient compression (``launch.steps`` / ``launch.train`` drive them)."""

@@ -1,18 +1,67 @@
-"""Int8 quantisation, ported from ``repro.training.compression``.
+"""Gradient compression, ported from ``repro.training.compression``: top-k
+sparsification with error feedback and per-tensor int8 quantisation.
 
-Only ``quantize_int8`` is ported so far: the paged KV cache stores int8
-pages with it.  Gradient compression waits for the training slice.
+Both are pure functions of (grad, state) -> (compressed, new state) plus a
+decompress.  ``quantize_int8`` is also what the paged KV cache stores its
+int8 pages with.  Stochastic rounding draws from a ``torch.Generator``
+where the reference takes a jax key, so its draws differ from the
+reference's; its properties (unbiased, inside +-127) are what carries
+over.  ``compressed_psum`` (the cross-pod reduce) needs
+``torch.distributed`` and waits for the sharding slice (ROADMAP.md, Queue 1
+item 16).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.tree import leaves, map_tree, unflatten
 
-def quantize_int8(g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+
+class TopKState(NamedTuple):
+    residual: Any                 # tree like grads, f32
+
+
+def topk_init(grads_like: Any) -> TopKState:
+    return TopKState(residual=map_tree(
+        lambda g: torch.zeros(g.shape, dtype=torch.float32, device=g.device), grads_like))
+
+
+def topk_compress(grads: Any, state: TopKState, frac: float = 0.05
+                  ) -> Tuple[Any, TopKState]:
+    """Returns (sparse grads (dense layout, zeros off-support), new state).
+    Error feedback: the un-sent residual is added to the next step's grads.
+    The threshold is the k-th largest |g|, and every entry at or above it is
+    sent, so ties at the threshold are all kept, as with ``lax.top_k``."""
+    def one(g, r):
+        g32 = g.float() + r
+        flat = g32.reshape(-1)
+        k = max(1, int(flat.shape[0] * frac))
+        thresh = torch.topk(flat.abs(), k).values[-1]
+        sent = torch.where(flat.abs() >= thresh, flat, 0.0)
+        return sent.reshape(g.shape).to(g.dtype), (flat - sent).reshape(g.shape)
+
+    outs = [one(g, r) for g, r in zip(leaves(grads), leaves(state.residual))]
+    return (unflatten(grads, [o[0] for o in outs]),
+            TopKState(unflatten(grads, [o[1] for o in outs])))
+
+
+def quantize_int8(g: torch.Tensor, generator: Optional[torch.Generator] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int8 values, f32 scale): symmetric per-tensor scale
-    max(|g|) / 127 (floored at 1e-12 / 127), round half to even."""
+    max(|g|) / 127 (floored at 1e-12 / 127).  Round half to even, or, given
+    a generator, stochastic rounding floor(x + U[0, 1)), which is unbiased."""
     scale = torch.clamp(torch.max(torch.abs(g.float())), min=1e-12) / 127.0
-    x = torch.round(g.float() / scale)
+    x = g.float() / scale
+    if generator is not None:
+        x = torch.floor(x + torch.rand(g.shape, generator=generator,
+                                       device=generator.device))
+    else:
+        x = torch.round(x)
     return torch.clamp(x, -127, 127).to(torch.int8), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)

@@ -830,8 +830,9 @@ def test_port_imports_neither_jax_nor_reference():
     the reference package and ml_dtypes (which JAX registers with numpy) out
     of sys.modules; the expert level, the slot cache, both new kernels, the
     workloads and the cluster plane (dispatch, cluster, drills) are among
-    the modules walked, and so are the simulator plane, the Mamba2 mixer
-    and every config of the architecture registry."""
+    the modules walked, and so are the simulator plane, the Mamba2 mixer,
+    every config of the architecture registry and the training modules
+    (a bf16 checkpoint saved and restored pulls in no ml_dtypes either)."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -859,7 +860,9 @@ need = {"repro_torch.core.placement", "repro_torch.core.affinity",
         "repro_torch.configs.deepseek_v2_236b", "repro_torch.configs.whisper_medium",
         "repro_torch.configs.llama4_maverick_400b_a17b",
         "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b",
-        "repro_torch.models.mamba2"}
+        "repro_torch.models.mamba2", "repro_torch.training.optimizer",
+        "repro_torch.training.checkpoint", "repro_torch.training.data",
+        "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.tree"}
 assert need <= set(sys.modules), need - set(sys.modules)
 from repro_torch.configs import ASSIGNED_ARCHS, list_archs, get_config
 assert len(ASSIGNED_ARCHS) == 10 and len(list_archs()) == 11
@@ -874,6 +877,12 @@ from repro_torch.workloads import burstgpt_trace, sharegpt_trace, suite_trace
 from repro_torch.serving import Cluster, Engine, MetricsBus
 from repro_torch.distributed import run_drill, HealthMonitor
 from repro_torch.core import DispatchCore, PrefixDirectory, make_router, synthetic_stats
+import tempfile, torch
+from repro_torch.launch.train import train
+from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
+with tempfile.TemporaryDirectory() as d:
+    save_checkpoint(d, 1, {"w": torch.ones(3, dtype=torch.bfloat16)})
+    assert restore_checkpoint(d, {"w": torch.zeros(3, dtype=torch.bfloat16)})[1]["w"].sum() == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
