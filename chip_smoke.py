@@ -129,10 +129,43 @@
    and off at batch 2 with the same loss and grad norm; T3, ``python -m
    repro_torch.launch.train`` run for 6 steps and rerun to 10 in a
    subprocess, which must resume from step 6 and end where an
-   uninterrupted run ends.  Training must launch none of the kernels.
-10. Prints the card's name and power limit, one JSON line listing the
-   kernels (with the cluster, families, variants, ssm and train runs'
-   launches beside the main path's), and as the last line
+   uninterrupted run ends (both through ``launch.train``'s context, as
+   every ``train()`` runs); T1c, T1's model, shape and data through
+   ``launch.train``'s context path (``make_mesh`` (1, 1), ``make_ctx``,
+   the expert-parallel MoE): timed steps beside T1's, losses within the
+   bf16 tolerance of T1's, the peak memory of one forward + backward
+   with remat off and under each ``remat_policy`` ("none", "dots",
+   "full"), and on the smoke qwen3 in f32 the gradients of "dots" and
+   "full" within 2e-4 of "none", which must reject a "dots" step whose
+   gates' gradient is cut.  Training must launch none of the kernels.
+10. Runs the sharding layer's context on one card, before the train
+   phase: ``launch.mesh.make_mesh`` starts a single-rank NCCL group over a
+   FileStore, and a psum on the card must return its input.  qwen3-30b-a3b
+   (4 layers, bf16, 8 rows x 128 tokens, 16 decode steps) through
+   ``make_prefill_step`` / ``make_decode_step`` with the (1, 1) mesh's
+   context and with ``ctx=None``, each path twice: tokens identical across
+   the runs; one teacher-forced decode step's logits within the bf16
+   tolerance on every row that both paths routed to the same experts;
+   each MoE layer's input routed by ``moe_apply_sharded`` as by
+   ``moe_apply``; the collectives a decode step counted; the bf16 token
+   agreement of the two paths printed (the reference's sequence-sharded
+   decode rounds otherwise than the plain one), then the ctx path run
+   again with the plain path's attention decode, its MoE, and both
+   swapped in: with the plain attention decode, tokens identical to the
+   plain path's, which must reject a MoE combine without gates.  First
+   the same at 2 layers in f32: tokens identical and logits within 2e-4,
+   which must reject a decode that skips its chunk's row write and a MoE
+   combine without gates.
+   deepseek-v2 (4 layers) the same way with MLA absorbed against naive,
+   both under the context.  None of these launches a kernel.
+11. Runs ``python -m repro_torch.launch.serve`` as a user would (the
+   reference's defaults: qwen3's smoke config, "gimbal", 2 engines,
+   BurstGPT --n 40) in a subprocess on the card, plain and with
+   ``--fail-engine 1``: every request must finish and the failure must
+   re-route requests; prints its report lines and wall seconds.
+12. Prints the card's name and power limit, one JSON line listing the
+   kernels (with the cluster, families, variants, ssm, ctx and train
+   runs' launches beside the main path's), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or the
@@ -141,6 +174,7 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -2537,6 +2571,7 @@ def _step_summary(torch, records, tokens: int, label: str, last: int) -> None:
         f"(forward+backward {med['fwd_bwd_ms']:.3f}, optimizer {med['opt_ms']:.3f}), "
         f"{1e3 * tokens / med['ms']:.1f} trained tokens/s, peak_device_memory_gib="
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f}")
+    return med
 
 
 def _train_t1(torch) -> None:
@@ -2563,7 +2598,8 @@ def _train_t1(torch) -> None:
     tokens = T1_SHAPE[0] * T1_SHAPE[1]
     recs = _timed_steps(torch, fn, carry, (_train_batch(torch, cfg, data, i, DEVICE)
                                            for i in range(T1_STEPS)), label)
-    _step_summary(torch, recs, tokens, label, T1_STEPS - 2)
+    T1_RESULT["T1"] = _step_summary(torch, recs, tokens, label, T1_STEPS - 2)
+    T1_RESULT["losses"] = [r["loss"] for r in recs]
     batch0 = _train_batch(torch, cfg, data, 0, DEVICE)
     rep = _timed_steps(torch, fn, carry, [batch0] * T1_STEPS, f"{label} batch 0")
     drop = rep[0]["loss"] - rep[-1]["loss"]
@@ -2592,6 +2628,126 @@ def _train_t1(torch) -> None:
 
     _retraced(traced)
     carry.clear()
+
+
+REMAT_POLICIES = (None, "none", "dots", "full")     # None: no remat
+T1_RESULT = {}                                      # T1's medians, printed beside T1c's
+
+
+def _remat_loss(torch, cfg, params, batch):
+    """The train step's loss (cross-entropy plus the router terms)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    logits, aux = M.forward_train(params, cfg, batch["tokens"],
+                                  placements=batch.get("placements"))
+    loss = S.cross_entropy(logits, batch["labels"])
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_coef * aux["load_balance_loss"] \
+            + cfg.router_z_coef * aux["router_z_loss"]
+    return loss
+
+
+def _remat_gates(torch, ctx) -> None:
+    """The smoke qwen3 in f32 on the card under the context: gradients
+    under remat_policy "none", "dots" and "full" within 2e-4 of those
+    without remat (the recomputation runs on autograd's own thread for the
+    card, under the forward's context); the planted fault (the gates'
+    gradient cut under "dots") outside it."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.distributed.context import shard_ctx
+    from repro_torch.launch import steps as S
+    from repro_torch.models import moe_sharded as MS
+    from repro_torch.tree import leaves
+
+    cfg = get_smoke_config(ARCH)
+    params = _family_params(torch, cfg, f"{ARCH} smoke remat")
+    batch = _train_batch(torch, cfg, _stream(cfg, TRAIN_GATE_SHAPE), 0, DEVICE)
+
+    def grads(policy, fault=None):
+        c = cfg if policy is None else cfg.replace(remat=True, remat_policy=policy)
+        with shard_ctx(ctx), (fault() if fault else contextlib.nullcontext()):
+            return S.value_and_grad(lambda p: _remat_loss(torch, c, p, batch), params)[1]
+
+    def cut_gates():
+        real = MS.top_k_gating
+        return mock.patch.object(MS, "top_k_gating",
+                                 lambda probs, k: tuple(t.detach() for t in real(probs, k)))
+
+    want = leaves(grads(None))
+    errs = {}
+    for name, policy, fault in (("none", "none", None), ("dots", "dots", None),
+                                ("full", "full", None),
+                                ("fault: dots, gates' gradient cut", "dots", cut_gates)):
+        got = leaves(grads(policy, fault))
+        errs[name] = max((a - b).abs().max().item() for a, b in zip(got, want))
+    log(f"train[remat {ARCH} smoke f32, ctx]: max abs gradient difference from no remat: "
+        f"{errs} (gate 2e-4)")
+    if not (max(errs["none"], errs["dots"], errs["full"]) <= 2e-4
+            and errs["fault: dots, gates' gradient cut"] > 2e-4):
+        raise AssertionError(f"train[remat]: gradients {errs} on the wrong side of 2e-4")
+
+
+def _train_t1c(torch) -> None:
+    """T1c: T1's model and shape through ``launch.train``'s context path
+    (``make_mesh`` (1, 1) over the NCCL group, ``make_ctx``,
+    ``make_train_step`` with the context, so every MoE layer runs
+    ``moe_apply_sharded``): T1_STEPS timed steps beside T1's; then the peak
+    memory of one forward + backward under each remat policy, and the f32
+    remat gates."""
+    from repro_torch.configs import at_depth, get_config
+    from repro_torch.distributed.context import shard_ctx
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import optimizer as O
+
+    full = get_config(ARCH)
+    cfg = at_depth(full, T1_DEPTH)
+    label = f"T1c {ARCH}"
+    ctx = S.make_ctx(make_mesh((1, 1), ("data", "model"), device=DEVICE))
+    log(f"train[{label}]: reduced: num_layers {full.num_layers} -> {cfg.num_layers}; batch "
+        f"{T1_SHAPE[0]} x seq {T1_SHAPE[1]}, {cfg.dtype}; the (1, 1) mesh's context "
+        f"(expert-parallel MoE)")
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    opt = _train_opt(2 * T1_STEPS)
+    carry = [_family_params(torch, cfg, label)]
+    carry.append(O.init_adamw(carry[0], opt))
+    fn = S.make_train_step(cfg, ctx, None, opt, remat=False)[0]
+    data = _stream(cfg, T1_SHAPE)
+    recs = _timed_steps(torch, fn, carry, (_train_batch(torch, cfg, data, i, DEVICE)
+                                           for i in range(T1_STEPS)), label)
+    med = _step_summary(torch, recs, T1_SHAPE[0] * T1_SHAPE[1], label, T1_STEPS - 2)
+    t1 = T1_RESULT.get("T1")
+    if t1:
+        log(f"train[{label}]: ctx path {med['ms']:.3f} ms a step (forward+backward "
+            f"{med['fwd_bwd_ms']:.3f}, optimizer {med['opt_ms']:.3f}) beside T1's ctx-free "
+            f"{t1['ms']:.3f} (forward+backward {t1['fwd_bwd_ms']:.3f}, optimizer "
+            f"{t1['opt_ms']:.3f}) in this run")
+    if not all(abs(a["loss"] - b) < 5e-2 for a, b in zip(recs, T1_RESULT.get("losses", []))):
+        raise AssertionError(f"train[{label}]: losses {[r['loss'] for r in recs]} are not "
+                             f"T1's {T1_RESULT.get('losses')}")
+    params = carry[0]
+    carry.clear()
+    batch = _train_batch(torch, cfg, data, 0, DEVICE)
+    for policy in REMAT_POLICIES:
+        c = cfg if policy is None else cfg.replace(remat=True, remat_policy=policy)
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with shard_ctx(ctx):
+            loss, grads = S.value_and_grad(lambda p: _remat_loss(torch, c, p, batch), params)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        log(f"train[{label}]: remat {policy or 'off'}: forward+backward {ms:.3f} ms, loss "
+            f"{float(loss):.4f}, peak_device_memory_gib="
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} (params held "
+            f"{held / 2**30:.2f})")
+        del grads
+    del params
+    _free(torch)
+    _remat_gates(torch, ctx)
 
 
 def _train_t2(torch) -> None:
@@ -2738,8 +2894,8 @@ def train_phase(torch) -> dict:
     t0 = time.perf_counter()
     runs = {}
     parts = (("T0", lambda: [_train_gates(torch, a) for a in (ARCH, MAMBA2)]),
-             ("T1", lambda: _train_t1(torch)), ("T2", lambda: _train_t2(torch)),
-             ("T3", lambda: _train_t3(torch)))
+             ("T1", lambda: _train_t1(torch)), ("T1c", lambda: _train_t1c(torch)),
+             ("T2", lambda: _train_t2(torch)), ("T3", lambda: _train_t3(torch)))
     for name, part in parts:
         t1 = time.perf_counter()
         K.reset_launch_counts()
@@ -2751,6 +2907,362 @@ def train_phase(torch) -> dict:
         raise AssertionError(f"train phase: training launched a kernel: {runs}")
     log(f"train phase: {time.perf_counter() - t0:.1f} s")
     return runs
+
+
+# ----------------------------------------------------------------------------- ctx phase
+
+CTX_ROWS, CTX_PROMPT, CTX_STEPS = 8, 128, 16     # rows, prompt tokens, decode steps
+CTX_DEPTH = 4                                    # the engine runs' cut (48 / 60 -> 4 layers)
+_COLLECTIVES = ("all_reduce", "all_gather_single", "all_gather_into_tensor",
+                "reduce_scatter_single", "reduce_scatter_tensor", "all_to_all_single")
+
+
+def _ctx_mesh(torch):
+    """The single-rank NCCL group (started by ``launch.mesh.make_mesh`` over
+    a FileStore in a temporary directory) and its (1, 1) mesh.  One psum on
+    the card checks that the group runs."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1, 1), ("data", "model"), device=DEVICE)
+    x = torch.arange(4.0, device=DEVICE)
+    y = mesh.psum(x, "model")
+    backend = dist.get_backend(mesh.group("model"))
+    if "nccl" not in str(backend) or not torch.equal(x, y):
+        raise AssertionError(f"ctx: the group's backend {backend} / psum {y} is not NCCL's")
+    log(f"ctx: process group {backend}, world size {dist.get_world_size()}, rank "
+        f"{dist.get_rank()}; mesh {mesh.shape}; a psum on the card returned its input")
+    return mesh
+
+
+class _CollectiveCount:
+    """Counts the ``torch.distributed`` collectives called while active."""
+
+    def __init__(self):
+        import torch.distributed as dist
+        self.counts = {}
+        self._patches = [mock.patch.object(dist, name, self._wrap(name, getattr(dist, name)))
+                         for name in _COLLECTIVES if hasattr(dist, name)]
+
+    def _wrap(self, name, fn):
+        def call(*a, **kw):
+            self.counts[name] = self.counts.get(name, 0) + 1
+            return fn(*a, **kw)
+        return call
+
+    def __enter__(self):
+        for p in self._patches:
+            p.start()
+        return self
+
+    def __exit__(self, *exc):
+        for p in self._patches:
+            p.stop()
+
+
+def _ctx_scope(ctx):
+    from repro_torch.distributed.context import shard_ctx
+    return shard_ctx(ctx) if ctx is not None else contextlib.nullcontext()
+
+
+def _ctx_prompts(torch, cfg, rows: int, length: int, seed: int):
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (rows, length), generator=gen).to(DEVICE)
+
+
+def _ctx_serve(torch, cfg, params, ctx, prompts, label: str,
+               steps: int = CTX_STEPS) -> dict:
+    """The step makers' path with ``ctx`` (None: the plain path): the
+    prefill step's first tokens, a prefill into a cache with room for
+    ``steps`` more positions (its snapshot kept), then ``steps`` timed
+    decode steps, each row fed its own last token."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.tree import map_tree
+    b, p = prompts.shape
+    pl = S.placements_input(cfg, DEVICE)
+    _free(torch)
+    torch.cuda.reset_peak_memory_stats()
+    pre = S.make_prefill_step(cfg, ctx, ShapeCell("p", p, b, "prefill"))[0]
+    dec = S.make_decode_step(cfg, ctx, ShapeCell("d", p + steps, b, "decode"))[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, pcache = pre(params, {"tokens": prompts, "placements": pl})
+    torch.cuda.synchronize()
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    del pcache
+    cache = M.init_cache(cfg, b, p + steps, device=DEVICE)
+    with torch.no_grad(), _ctx_scope(ctx):
+        M.prefill(params, cfg, prompts, cache, placements=pl)
+    snapshot = map_tree(torch.clone, cache)
+    nxt, toks, ms = first, [], []
+    with _CollectiveCount() as coll:
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            nxt, cache = dec(params, cache, {
+                "tokens": nxt[:, None], "placements": pl,
+                "cache_pos": torch.full((b,), p + i, dtype=torch.int32, device=DEVICE)})
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            toks.append(nxt)
+    del cache
+    out = dict(first=first, tokens=torch.stack(toks), ms=ms, snapshot=snapshot,
+               collectives={k: v // steps for k, v in coll.counts.items()},
+               peak=torch.cuda.max_memory_allocated() / 2**30, prefill_ms=prefill_ms)
+    log(f"ctx[{label}]: prefill step {prefill_ms:.3f} ms ({b} x {p}), decode ms a step "
+        f"median {statistics.median(ms[2:]):.3f} (min {min(ms[2:]):.3f}, max "
+        f"{max(ms[2:]):.3f}, first {ms[0]:.3f}), collectives a decode step "
+        f"{out['collectives']}, peak_device_memory_gib={out['peak']:.2f}")
+    return out
+
+
+def _ctx_step_logits(torch, cfg, params, ctx, run: dict):
+    """One decode step, teacher-forced: ``run``'s first tokens on a copy of
+    its post-prefill cache, under ``ctx`` (MLA absorbed as it says);
+    returns (f32 logits, aux with the MoE stats)."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.tree import map_tree
+    b, p = run["first"].shape[0], CTX_PROMPT
+    absorb = ctx.mla_absorb if ctx is not None else False
+    cache = map_tree(torch.clone, run["snapshot"])
+    with torch.no_grad(), _ctx_scope(ctx):
+        logits, _, aux = M.decode_step(
+            params, cfg, run["first"][:, None], cache,
+            torch.full((b,), p, dtype=torch.int32, device=DEVICE),
+            placements=S.placements_input(cfg, DEVICE), stats=cfg.is_moe, mla_absorb=absorb)
+    return logits.float(), aux
+
+
+def _moe_ids_same_input(torch, cfg, params, ctx, run: dict) -> tuple:
+    """Each MoE layer's input in a ctx'd decode step, fed to both
+    ``moe_apply_sharded`` and ``moe_apply`` (dense, the plain path's):
+    expert ids and counts equal, outputs within the bf16 tolerance.
+    Returns (layers checked, largest output difference)."""
+    from repro_torch.models import blocks as Bk
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.moe_sharded import moe_apply_sharded
+    seen = []
+    real = Bk._moe
+
+    def spy(p, c, h, placement, mode, stats):
+        seen.append((p, h.clone(), placement))
+        return real(p, c, h, placement, mode, stats)
+
+    with mock.patch.object(Bk, "_moe", spy):
+        _ctx_step_logits(torch, cfg, params, ctx, run)
+    worst = -math.inf
+    with torch.no_grad():
+        for p, h, plc in seen:
+            ys, a_s = moe_apply_sharded(p, cfg, h, plc, ctx, True)
+            yp, a_p = MoE.moe_apply(p, cfg, h, plc, "dense", True)
+            if not (torch.equal(a_s["expert_ids"], a_p["expert_ids"])
+                    and torch.equal(a_s["expert_counts"], a_p["expert_counts"])):
+                raise AssertionError("ctx: the sharded MoE routed otherwise than moe_apply "
+                                     "on the same input")
+            worst = max(worst, max_excess(ys, yp, TOL[cfg.dtype], TOL[cfg.dtype])[1])
+    if worst > 0:
+        raise AssertionError(f"ctx: the sharded MoE's output is {worst:.3e} from moe_apply's")
+    return len(seen), worst
+
+
+def _ctx_compare(torch, cfg, params, label: str, base, other, faults: dict,
+                 bf16_logits: bool = True) -> dict:
+    """The gates of one ctx comparison: ``base`` and ``other`` are (name,
+    ctx) pairs.  Each path runs twice, and its tokens must repeat; the
+    sharded MoE must route each layer's input as ``moe_apply`` does.  In
+    f32 the two paths' first tokens and token streams must be identical,
+    one teacher-forced decode step's logits within 2e-4, and each planted
+    fault (name -> patch) outside it.  In bf16 the paths' last-bit
+    differences tip router near-ties (a row then takes other experts, and
+    its logits and later tokens move): the logits of every row that both
+    paths routed alike in every layer must be within the bf16 tolerance
+    (unless ``bf16_logits`` is off: two formulas that round differently),
+    and the token agreement is printed."""
+    prompts = _ctx_prompts(torch, cfg, CTX_ROWS, CTX_PROMPT, SEED)
+    runs = {}
+    for name, ctx in (base, other):
+        first = _ctx_serve(torch, cfg, params, ctx, prompts, f"{label} {name}")
+        again = _ctx_serve(torch, cfg, params, ctx, prompts, f"{label} {name} rerun")
+        if not (torch.equal(first["first"], again["first"])
+                and torch.equal(first["tokens"], again["tokens"])):
+            raise AssertionError(f"ctx[{label}]: {name}'s tokens differ between two runs")
+        runs[name] = first
+        del again
+    (bname, bctx), (oname, octx) = base, other
+    a, b = runs[bname], runs[oname]
+    same_first = torch.equal(a["first"], b["first"])
+    same = int((a["tokens"] == b["tokens"]).sum()), a["tokens"].numel()
+    log(f"ctx[{label}]: {oname} vs {bname}: first tokens identical {same_first}; decode "
+        f"tokens identical {same[0]} / {same[1]}; each path's two runs identical")
+    la, aa = _ctx_step_logits(torch, cfg, params, bctx, a)
+    lb, ab = _ctx_step_logits(torch, cfg, params, octx, a)
+    tol = TOL[cfg.dtype]
+    keep = torch.ones(la.shape[0], dtype=torch.bool, device=la.device)
+    if "expert_ids" in aa:
+        keep = ~(aa["expert_ids"] != ab["expert_ids"]).flatten(2).any(-1).any(0)
+    err, excess = max_excess(lb[keep], la[keep], tol, tol)
+    fault_err = {}
+    for fname, patch in faults.items():
+        with patch():
+            lf, _ = _ctx_step_logits(torch, cfg, params, octx, a)
+        fault_err[fname] = max_excess(lf, la, tol, tol)
+    moved = (lb[~keep] - la[~keep]).abs().max().item() if not keep.all() else 0.0
+    log(f"ctx[{label}]: teacher-forced decode step logits {oname} vs {bname}, rows routed "
+        f"alike {int(keep.sum())} / {keep.numel()}: max_abs_err {err:.3e}, excess over "
+        f"rtol = atol = {tol}: {excess:.3e}; rows a router near-tie sent elsewhere: max_abs_err "
+        f"{moved:.3e}; planted faults {{"
+        + ", ".join(f"{k}: max_abs_err {v[0]:.3e} excess {v[1]:.3e}"
+                    for k, v in fault_err.items()) + "}")
+    if cfg.is_moe and octx is not None:
+        layers, worst = _moe_ids_same_input(torch, cfg, params, octx, a)
+        log(f"ctx[{label}]: sharded MoE on each of {layers} MoE layers' inputs: expert ids and "
+            f"counts equal to moe_apply's, outputs' excess over the tolerance {worst:.3e}")
+    exact = cfg.dtype == "float32"
+    if exact and not (same_first and same[0] == same[1] and keep.all()):
+        raise AssertionError(f"ctx[{label}]: {oname}'s tokens or routing differ from "
+                             f"{bname}'s in f32")
+    held = exact or bf16_logits
+    if held and not (keep.any() and excess <= 0) or any(not v[1] > 0
+                                                        for v in fault_err.values()):
+        raise AssertionError(f"ctx[{label}]: logits {err:.3e} or a fault {fault_err} on the "
+                             f"wrong side of rtol = atol = {tol}")
+    return runs
+
+
+def _no_row_write():
+    """Fault: the sequence-sharded decodes attend without writing the new
+    row into their chunk (it reaches the cache only after the region)."""
+    from repro_torch.models import attention as A
+    return mock.patch.object(A, "_write_row_guarded", lambda *a, **kw: None)
+
+
+def _ungated_combine():
+    """Fault: the sharded MoE sums each token's k expert rows ungated."""
+    from repro_torch.models import moe_sharded as MS
+    real = MS._combine
+    return mock.patch.object(MS, "_combine",
+                             lambda ye, idx, g, dtype: real(ye, idx, g.new_ones(g.shape), dtype))
+
+
+def _ctx_attribution(torch, cfg, params, label: str, ctx, plain: dict) -> None:
+    """Which formula difference moves the ctx path's bf16 tokens off the
+    plain path's: the ctx path run again with the plain path's attention
+    decode (``attention`` sees no context), with its MoE (``blocks._moe``
+    takes ``moe_apply``'s dense dispatch), and with both.  With the plain
+    attention decode the rest of the ctx path (the single-rank group and
+    its collectives, the sharded MoE, the step makers' context) must give
+    the plain path's tokens exactly, and must not with a MoE combine
+    without gates."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as Bk
+    swaps = {"plain attention": ((A,), None), "moe_apply": ((Bk,), None),
+             "both": ((A, Bk), None),
+             "plain attention, fault: MoE combine without gates": ((A,), _ungated_combine)}
+    prompts = _ctx_prompts(torch, cfg, CTX_ROWS, CTX_PROMPT, SEED)
+    agree = {}
+    for name, (mods, fault) in swaps.items():
+        with contextlib.ExitStack() as stack:
+            for mod in mods:
+                stack.enter_context(mock.patch.object(mod, "current_ctx", lambda: None))
+            if fault is not None:
+                stack.enter_context(fault())
+            run = _ctx_serve(torch, cfg, params, ctx, prompts, f"{label} ctx, {name}")
+        agree[name] = (bool(torch.equal(run["first"], plain["first"])),
+                       int((run["tokens"] == plain["tokens"]).sum()))
+    n = plain["tokens"].numel()
+    log(f"ctx[{label}]: ctx path with the plain path's formulas swapped in, decode tokens "
+        f"identical to the plain path's (first tokens identical): "
+        + ", ".join(f"{k} {v[1]} / {n} ({v[0]})" for k, v in agree.items()))
+    fault = agree["plain attention, fault: MoE combine without gates"]
+    if not (agree["plain attention"] == agree["both"] == (True, n) and fault != (True, n)):
+        raise AssertionError(f"ctx[{label}]: with the plain attention decode the ctx path's "
+                             f"tokens are not the plain path's, or the fault's are: {agree}")
+
+
+def ctx_phase(torch) -> dict:
+    """The shard context on one card: a single-rank NCCL group and its
+    (1, 1) mesh, then qwen3-30b-a3b (ctx against the plain path),
+    deepseek-v2 (MLA absorbed against naive, both under the ctx).  Returns
+    each run's kernel
+    launches, which must be 0: the sharded MoE and the sequence-sharded
+    decodes are einsum bodies in the reference as here."""
+    from repro_torch import kernels as K
+    from repro_torch.configs import at_depth, get_config
+    from repro_torch.launch import steps as S
+
+    _free(torch)
+    t0 = time.perf_counter()
+    mesh = _ctx_mesh(torch)
+    runs = {}
+    qwen3 = (("plain", None), ("ctx", S.make_ctx(mesh)))
+    deepseek = (("ctx naive", S.make_ctx(mesh)),
+                ("ctx absorbed", S.make_ctx(mesh, mla_absorb=True)))
+    # absorbed and naive MLA round differently in bf16 (the latent queries
+    # are rounded once more); the reference holds them together in f32 only
+    for arch, paths, depth, dtype, faults, bf16_logits in (
+            (ARCH, qwen3, CTX_DEPTH, "float32",
+             {"decode without its row write": _no_row_write,
+              "MoE combine without gates": _ungated_combine}, True),
+            (ARCH, qwen3, CTX_DEPTH, "bfloat16", {}, True),
+            (DEEPSEEK, deepseek, 2, "float32",
+             {"absorbed decode without its row write": _no_row_write}, True),
+            (DEEPSEEK, deepseek, CTX_DEPTH, "bfloat16", {}, False)):
+        full = get_config(arch)
+        cfg = at_depth(full, depth).replace(dtype=dtype)
+        label = f"{arch} {depth} layers {dtype}"
+        log(f"ctx[{label}]: reduced: num_layers {full.num_layers} -> {cfg.num_layers}; "
+            f"{CTX_ROWS} rows x {CTX_PROMPT} prompt tokens, {CTX_STEPS} decode steps, "
+            f"seed {SEED} weights")
+        t1 = time.perf_counter()
+        params = _family_params(torch, cfg, label)
+        K.reset_launch_counts()
+        served = _ctx_compare(torch, cfg, params, label, *paths, faults, bf16_logits)
+        if arch == ARCH and dtype == "bfloat16":
+            _ctx_attribution(torch, cfg, params, label, paths[1][1], served["plain"])
+        runs[label] = {fn.__name__: fn.launches for fn in K.KERNELS}
+        del params
+        _free(torch)
+        log(f"ctx[{label}]: {time.perf_counter() - t1:.1f} s, launches {runs[label]}")
+    if any(n for counts in runs.values() for n in counts.values()):
+        raise AssertionError(f"ctx phase: a run launched a kernel: {runs}")
+    log(f"ctx phase: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+# ----------------------------------------------------------------------------- serve phase
+
+SERVE_RUNS = (("plain", []), ("--fail-engine 1", ["--fail-engine", "1"]))
+
+
+def serve_phase() -> None:
+    """``python -m repro_torch.launch.serve`` as a user runs it, in a
+    subprocess on the card, with the reference's defaults (qwen3's smoke
+    config, "gimbal", 2 engines, BurstGPT --n 40), plain and with
+    ``--fail-engine 1``: every request must finish, and the failure must
+    re-route requests."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for label, extra in SERVE_RUNS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *extra]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"serve[{label}]: exited {run.returncode}: "
+                                 f"{run.stderr[-2000:]}")
+        lines = [line for line in run.stdout.splitlines() if line.startswith("[serve]")]
+        for line in lines:
+            log(f"serve[{label}]: {line}")
+        done = re.search(r"(\d+)/(\d+) done", run.stdout)
+        moved = [int(m) for m in re.findall(r"re-routed (\d+) requests", run.stdout)]
+        log(f"serve[{label}]: wall {wall:.1f} s (process start, CUDA init and the run)")
+        if not done or done.group(1) != done.group(2):
+            raise AssertionError(f"serve[{label}]: not every request finished: {lines}")
+        if "--fail-engine" in extra and not (moved and moved[0] > 0):
+            raise AssertionError(f"serve[{label}]: the failure re-routed no request: {lines}")
 
 
 def _report_trace(prof, wall_s: float, label: str, seen: dict | None) -> list:
@@ -2872,7 +3384,9 @@ def main() -> int:
     families = families_phase(torch)
     variants = variants_phase(torch)
     ssm = ssm_phase(torch)
+    ctx = ctx_phase(torch)
     train = train_phase(torch)
+    serve_phase()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -2893,6 +3407,7 @@ def main() -> int:
                      "families_launches": {run: n[name] for run, n in families.items()},
                      "variants_launches": {run: n[name] for run, n in variants.items()},
                      "ssm_launches": {run: n[name] for run, n in ssm.items()},
+                     "ctx_launches": {run: n[name] for run, n in ctx.items()},
                      "train_launches": {run: n[name] for run, n in train.items()}})
     log(json.dumps({"kernels": line}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,7 +7,7 @@ values of ``repro.configs``.  All of them feed the simulator's cost model,
 and ``models.model`` runs every one.  ``at_depth`` cuts a config's depth
 (chip_smoke's cuts) and ``depth_pair`` gives the reference's two probe
 depths; the dry-run's input stand-ins (``input_specs``, ``dryrun_cells``)
-wait for the sharding slice (ROADMAP.md, Queue 1 item 16).
+wait for the dry-run slice (ROADMAP.md, Queue 1 item 16e).
 """
 from __future__ import annotations
 

@@ -13,11 +13,15 @@ import torch
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve(device: DeviceLike = None) -> torch.device:
+def resolve(device: DeviceLike = None, meta_ok: bool = False) -> torch.device:
     """``None`` means the card.  On the card, float32 matrix products and
     convolutions run in full float32: TF32 is switched off, because the
-    router logits are an f32 product and TF32 there changes expert ids."""
+    router logits are an f32 product and TF32 there changes expert ids.
+    ``meta_ok`` admits the meta device, where tensors have shapes and no
+    storage (``models.model.abstract_params``)."""
     dev = torch.device("cuda" if device is None else device)
+    if meta_ok and dev.type == "meta":
+        return dev
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

@@ -1,30 +1,47 @@
 """Step functions (train / prefill / decode), ported from
-``repro.launch.steps`` for one device.
+``repro.launch.steps``.
 
-Each ``make_*_step`` keeps the reference's return shape, with ``None`` in
-place of the partition specs: the shardings, ``make_ctx`` and the dry-run
-half (``train_inputs``, ``abstract_cache``, ``abstract_train_state``) wait
-for the sharding slice (ROADMAP.md, Queue 1 item 16), so ``ctx`` must be
-None.  The train step differentiates with autograd: training runs the
-forward with its default dense dispatch, so it launches none of the
-port's kernels.
+Each ``make_*_step(cfg, ctx, cell)`` returns the reference's triple: the
+step, its input specs and its output specs (``distributed/sharding.py``
+spec trees).  Given a shard context (``make_ctx``) the step runs its body
+under it, as the reference does, so the MoE layers take the
+expert-parallel path and slot decodes the sequence-sharded ones, at any
+world size, 1 included; the decode step passes ``ctx.mla_absorb``.  With
+``ctx=None`` the step runs the plain single-device path and the specs are
+None.  The train step differentiates with autograd; training reaches
+none of the port's kernels.  The dry-run half (``train_inputs``,
+``abstract_cache``, ``abstract_train_state``) waits for the last slice of
+the port (ROADMAP.md, Queue 1 item 16e).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Optional
 
 import torch
 
+from repro_torch.distributed.context import P, ShardCtx, batch_axis, shard_ctx
+from repro_torch.distributed.sharding import cache_specs, param_specs
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeCell
-from repro_torch.training.optimizer import AdamWConfig, adamw_update
+from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_update
 from repro_torch.tree import leaves, unflatten
 
 
-def _no_ctx(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError("sharded steps wait for the sharding slice "
-                                  "(ROADMAP.md, Queue 1 item 16); pass ctx=None")
+def make_ctx(mesh, **overrides) -> ShardCtx:
+    """The shard context of ``mesh``: its "pod" and "data" axes batch."""
+    batch_axes = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    return ShardCtx(mesh=mesh, batch_axes=batch_axes, **overrides)
+
+
+def _batch_ax(ctx: ShardCtx, b: int):
+    return batch_axis(ctx, b)
+
+
+def _under(ctx: Optional[ShardCtx]):
+    """The context to run a step's body in: ``ctx``'s, or whatever is
+    active when there is none."""
+    return shard_ctx(ctx) if ctx is not None else contextlib.nullcontext()
 
 
 def placements_input(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
@@ -59,17 +76,18 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 # train step
 # =============================================================================
 
-def make_train_step(cfg: ModelConfig, ctx=None, cell: Optional[ShapeCell] = None,
+def make_train_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
+                    cell: Optional[ShapeCell] = None,
                     opt_cfg: Optional[AdamWConfig] = None, remat: bool = True):
-    """Returns (train_step, (param specs, optimizer specs), out specs), the
-    specs None.  ``train_step(params, opt_state, batch)`` -> (params,
+    """Returns (train_step, (param specs, optimizer specs), (param specs,
+    optimizer specs, metric specs)), the specs None without a context.
+    ``train_step(params, opt_state, batch)`` -> (params,
     opt_state, {"loss", "grad_norm", "lr"}): the cross-entropy, plus for a
     MoE ``router_aux_coef * load_balance_loss + router_z_coef *
     router_z_loss``; a VLM's logits are sliced past its vision prefix.  The
     batch holds "tokens" and "labels" and, where the model takes them,
     "placements", "vision_embeds" and "frames".  With ``remat`` every stack
     unit is recomputed in the backward pass (``cfg.remat``)."""
-    _no_ctx(ctx)
     opt_cfg = opt_cfg or AdamWConfig()
     tcfg = cfg.replace(remat=remat, remat_policy="none") if remat else cfg
 
@@ -90,11 +108,17 @@ def make_train_step(cfg: ModelConfig, ctx=None, cell: Optional[ShapeCell] = None
         return loss
 
     def train_step(params, opt_state, batch):
-        loss, grads = value_and_grad(loss_fn, params, batch)
-        params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
-        return params, opt_state, {"loss": loss, **om}
+        with _under(ctx):
+            loss, grads = value_and_grad(loss_fn, params, batch)
+            params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
+            return params, opt_state, {"loss": loss, **om}
 
-    return train_step, (None, None), (None, None, None)
+    if ctx is None:
+        return train_step, (None, None), (None, None, None)
+    pspecs = param_specs(cfg, ctx)
+    ospecs = AdamWState(step=P(), m=pspecs, v=pspecs)
+    metric_specs = {"loss": P(), "grad_norm": P(), "lr": P()}
+    return train_step, (pspecs, ospecs), (pspecs, ospecs, metric_specs)
 
 
 def value_and_grad(loss_fn, params: Any, *args):
@@ -121,39 +145,57 @@ def _total_seq(cfg: ModelConfig, cell: ShapeCell) -> int:
     return cell.seq_len + (cfg.vision_prefix_len if cfg.family == "vlm" else 0)
 
 
-def make_prefill_step(cfg: ModelConfig, ctx=None, cell: Optional[ShapeCell] = None):
-    """Returns (prefill_step, cache specs, out specs), the specs None.
-    ``prefill_step(params, batch)`` -> (first greedy token (B,) int32, the
-    cache it filled)."""
-    _no_ctx(ctx)
+def _serve_specs(cfg: ModelConfig, ctx: Optional[ShardCtx], b: int, total_seq: int):
+    """(cache specs, (next-token spec, cache specs)), None without a
+    context."""
+    if ctx is None:
+        return None, (None, None)
+    cspecs = cache_specs(cfg, ctx, b, total_seq)
+    return cspecs, (P(_batch_ax(ctx, b)), cspecs)
+
+
+def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
+                      cell: Optional[ShapeCell] = None):
+    """Returns (prefill_step, cache specs, out specs), the specs None
+    without a context.  ``prefill_step(params, batch)`` -> (first greedy
+    token (B,) int32, the cache it filled)."""
     b, total_seq = cell.global_batch, _total_seq(cfg, cell)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        tokens = batch["tokens"]
-        cache = M.init_cache(cfg, b, total_seq, device=tokens.device)
-        kw = {k: batch[k] for k in ("vision_embeds", "frames") if k in batch}
-        logits, new_cache, _ = M.prefill(params, cfg, tokens, cache,
-                                         placements=batch.get("placements"), **kw)
-        first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-        return first, new_cache
+        with _under(ctx):
+            tokens = batch["tokens"]
+            cache = M.init_cache(cfg, b, total_seq, device=tokens.device)
+            kw = {k: batch[k] for k in ("vision_embeds", "frames") if k in batch}
+            logits, new_cache, _ = M.prefill(params, cfg, tokens, cache,
+                                             placements=batch.get("placements"), **kw)
+            first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            return first, new_cache
 
-    return prefill_step, None, (None, None)
+    cspecs, out_specs = _serve_specs(cfg, ctx, b, total_seq)
+    return prefill_step, cspecs, out_specs
 
 
-def make_decode_step(cfg: ModelConfig, ctx=None, cell: Optional[ShapeCell] = None):
+def make_decode_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
+                     cell: Optional[ShapeCell] = None):
     """One new token against a cache of ``cell.seq_len`` positions.
-    Returns (serve_step, cache specs, out specs), the specs None.
-    ``serve_step(params, cache, batch)`` -> (next greedy token (B,) int32,
-    the cache, written in place)."""
-    _no_ctx(ctx)
+    Returns (serve_step, cache specs, out specs), the specs None without a
+    context.  ``serve_step(params, cache, batch)`` -> (next greedy token
+    (B,) int32, the cache, written in place); MLA decodes absorbed when
+    ``ctx.mla_absorb``."""
+    absorb = ctx.mla_absorb if ctx is not None else False
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
-        logits, new_cache, _ = M.decode_step(params, cfg, batch["tokens"], cache,
-                                             batch["cache_pos"],
-                                             placements=batch.get("placements"))
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)
-        return nxt, new_cache
+        with _under(ctx):
+            logits, new_cache, _ = M.decode_step(params, cfg, batch["tokens"], cache,
+                                                 batch["cache_pos"],
+                                                 placements=batch.get("placements"),
+                                                 mla_absorb=absorb)
+            nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            return nxt, new_cache
 
-    return serve_step, None, (None, None)
+    if cell is None:
+        return serve_step, None, (None, None)
+    cspecs, out_specs = _serve_specs(cfg, ctx, cell.global_batch, _total_seq(cfg, cell))
+    return serve_step, cspecs, out_specs

@@ -10,8 +10,15 @@ resumes from the newest complete manifest (checkpoints are written
 atomically, see ``training/checkpoint.py``); the token stream is a pure
 function of the step, so a resumed run replays the batches an
 uninterrupted one would have seen.  It runs on the card unless
-``device="cpu"``.  One device only: a mesh other than 1 x 1 waits for the
-sharding slice (ROADMAP.md, Queue 1 item 16).
+``device="cpu"``.
+
+As in the reference, every run goes through a mesh and its shard context
+(``launch.mesh.make_mesh``, ``launch.steps.make_ctx``): ``mesh_shape``
+defaults to (1, n), n the ranks of the started process group (1 when none
+is started, as on one card), so a MoE trains through the expert-parallel
+path.  A larger mesh runs one rank a process over ``torch.distributed``
+(torchrun, or a group the caller started); every rank computes the same
+losses and ends with the same state, and only rank 0 writes checkpoints.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import torch
 
 from repro_torch import device as devlib
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.placement import perm_to_slot_map, static_placement
 from repro_torch.launch import steps as S
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models import model as M
 from repro_torch.models.config import ShapeCell
 from repro_torch.training.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -35,10 +44,7 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
           mesh_shape=None, log_every: int = 10, seed: int = 0, device=None):
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``'s
     newest checkpoint) and return the losses of the steps this call ran."""
-    if mesh_shape is not None and tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(f"mesh_shape {tuple(mesh_shape)}: meshes beyond 1 x 1 "
-                                  "wait for the sharding slice (ROADMAP.md, Queue 1 "
-                                  "item 16)")
+    import torch.distributed as dist
     dev = devlib.resolve(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cell = ShapeCell("train_custom", seq, batch, "train")
@@ -47,7 +53,13 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
     data = TokenStream(DataConfig(vocab_size=cfg.vocab_size, global_batch=batch,
                                   seq_len=seq, seed=seed))
 
-    fn, _, _ = S.make_train_step(cfg, None, cell, opt_cfg, remat=False)
+    if mesh_shape is None:
+        mesh_shape = (1, dist.get_world_size() if dist.is_initialized() else 1)
+    mesh = make_mesh(mesh_shape, ("data", "model"), device=dev)
+    ctx = S.make_ctx(mesh)
+    writer = mesh.rank == 0
+
+    fn, _, _ = S.make_train_step(cfg, ctx, cell, opt_cfg, remat=False)
     params = M.init_params(cfg, seed=seed, device=dev)
     opt_state = init_adamw(params, opt_cfg)
     start = 0
@@ -61,8 +73,11 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
         b = data.batch_at(step)
         batch_dev = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
         if cfg.is_moe:
-            # training uses the unreplicated identity layout
-            batch_dev["placements"] = S.placements_input(cfg, dev)
+            # training uses the unreplicated layout of the static placement
+            inv = perm_to_slot_map(static_placement(cfg.num_experts,
+                                                    min(ctx.tp, cfg.num_experts)))
+            batch_dev["placements"] = torch.from_numpy(inv).to(dev).expand(
+                cfg.num_moe_layers(), cfg.num_experts)
         if cfg.family == "vlm":
             batch_dev["vision_embeds"] = torch.zeros(
                 (batch, cfg.vision_prefix_len, cfg.d_model), dtype=cfg.adtype, device=dev)
@@ -75,9 +90,9 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
             print(f"[train] step {step} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time()-t0):.1f}s)")
-        if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+        if writer and ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
             save_checkpoint(ckpt_dir, step + 1, (params, opt_state))
-    if ckpt_dir:
+    if writer and ckpt_dir:
         save_checkpoint(ckpt_dir, steps, (params, opt_state))
     return losses
 

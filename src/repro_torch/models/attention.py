@@ -19,8 +19,18 @@
 Conventions kept from the reference: the finite ``NEG_INF`` mask, the
 ``CHUNK_THRESHOLD`` / ``Q_CHUNK`` switch to chunked prefill, the kernel
 called with ``lengths + 1`` after the append, and the monotone int8 page
-scale.  The sequence-sharded decode branches (GQA and MLA) wait for the
-sharding slice (ROADMAP.md, Queue 1 item 16).
+scale.
+
+Under a shard context (``distributed/context.py``) whose model axis
+divides the cache length, a slot decode (GQA and MLA) takes the reference's
+sequence-sharded flash-decode: each rank of the model axis attends over
+its chunk of the cache and the partial softmax statistics are combined
+with ``pmax`` / ``psum``.  The cache stays whole on every rank: the region
+writes the new row into this rank's chunk (the reference's guarded write),
+then every rank writes it into its whole copy, which is what gathering the
+chunks back would give, without moving the cache.  The reference's
+sharding constraints on q and the expanded k/v move no value and are left
+out; ``distributed/sharding.py`` keeps their choice of layout.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.context import (P, batch_axis, current_ctx, divides,
+                                             shard_map)
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, normal, rms_norm, softcap
@@ -95,7 +107,7 @@ def _causal_mask(sq: int, skv: int, window: int, device) -> torch.Tensor:
     j = torch.arange(skv, device=device)[None, :]
     m = j <= i
     if window > 0:
-        m &= j > (i - window)
+        m = m & (j > (i - window))
     return m[None]  # (1, Sq, Skv)
 
 
@@ -122,7 +134,7 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, window: int, causal: bool = True,
         m = (j <= i) if causal else torch.ones((qc, skv), dtype=torch.bool,
                                                device=q.device)
         if window > 0:
-            m &= j > (i - window)
+            m = m & (j > (i - window))
         bias = torch.where(m, 0.0, NEG_INF).to(torch.float32)
         scores = scores + bias[None, None]
         w = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -131,7 +143,16 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, window: int, causal: bool = True,
 
 
 def _sdpa_auto(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
-    """Pick chunked vs. materialized scores by footprint."""
+    """Pick chunked vs. materialized scores by footprint.  Under a shard
+    context whose model axis divides the query sequence but not the heads,
+    the reference attends with materialized scores (context-parallel: the
+    scores split on the query sequence), whatever their size."""
+    ctx = current_ctx()
+    if (ctx is not None and q.shape[1] > 1 and not divides(q.shape[2], ctx.tp)
+            and divides(q.shape[1], ctx.tp)):
+        mask = (_causal_mask(q.shape[1], k.shape[1], window, q.device) if causal else
+                torch.ones((1, q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device))
+        return _sdpa(cfg, q, k, v, mask)
     if q.shape[1] * k.shape[1] > CHUNK_THRESHOLD and q.shape[1] > 1:
         return _sdpa_chunked(cfg, q, k, v, window, causal)
     mask = (_causal_mask(q.shape[1], k.shape[1], window, q.device) if causal else
@@ -162,13 +183,21 @@ def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     """One-token decode against one layer's slot cache.  x: (B,1,d); cache:
     {"k": (B,S,Hkv,D), "v": ...}; cache_pos: (B,) int32 write positions.
     The new K/V are written IN PLACE (the reference returns new arrays);
-    returns (out, cache).  The reference's sequence-sharded branch waits for
-    the sharding slice (ROADMAP.md, Queue 1 item 16)."""
+    returns (out, cache).  Under a shard context whose model axis divides
+    the cache length, the sequence-sharded decode runs instead."""
     q, k_new, v_new = _qkv(params, cfg, x)
     q = apply_rope(q, cache_pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, cache_pos[:, None], cfg.rope_theta)
     pos = cache_pos.long()
     rows = torch.arange(x.shape[0], device=x.device)
+
+    ctx = current_ctx()
+    if ctx is not None and divides(cache["k"].shape[1], ctx.tp):
+        out = _gqa_decode_seqsharded(cfg, q, k_new, v_new, cache, cache_pos, local, ctx)
+        cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+
     cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
 
@@ -181,6 +210,72 @@ def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                 mask[:, None, :])
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return out, cache
+
+
+def _write_row_guarded(c: torch.Tensor, new: torch.Tensor, lp_safe, in_range) -> None:
+    """Write ``new`` (B, ...) into row ``lp_safe`` of each batch row of the
+    chunk ``c`` (B, S_loc, ...) in place where ``in_range``; elsewhere the
+    row is re-written with what it holds (a one-row read and write, not a
+    select over the whole chunk)."""
+    rows = torch.arange(c.shape[0], device=c.device)
+    cur = c[rows, lp_safe]
+    ok = in_range.reshape((-1,) + (1,) * (cur.ndim - 1))
+    c[rows, lp_safe] = torch.where(ok, new.to(c.dtype), cur)
+
+
+def _seq_chunk(mesh, axis: str, s_loc: int, pos: torch.Tensor):
+    """(start, in-range, clamped local position) of this rank's chunk of
+    ``s_loc`` cache positions along ``axis``, for write positions ``pos``."""
+    start = mesh.axis_index(axis) * s_loc
+    lp = pos.long() - start
+    return start, (lp >= 0) & (lp < s_loc), lp.clamp(0, s_loc - 1)
+
+
+def _gqa_decode_seqsharded(cfg: ModelConfig, q, k_new, v_new, cache, cache_pos,
+                           local: bool, ctx) -> torch.Tensor:
+    """Flash-decode with the KV cache split over the model axis on the
+    sequence: each rank writes the new row into its chunk (when the row
+    falls there), attends over the chunk, and the partial softmax
+    statistics are combined with ``pmax`` / ``psum``, the collective form
+    of flash attention's online softmax.
+
+    q: (B,1,Hq,D); k_new/v_new: (B,1,Hkv,D); cache k/v: (B,S,Hkv,D).
+    Returns out (B,1,Hq,D)."""
+    mesh, ax = ctx.mesh, ctx.model_axis
+    b_ax = batch_axis(ctx, q.shape[0])
+    window = cfg.sliding_window if local else 0
+
+    def body(qb, kn, vn, kc, vc, pos):
+        s_loc = kc.shape[1]
+        start, in_range, lp_safe = _seq_chunk(mesh, ax, s_loc, pos)
+        _write_row_guarded(kc, kn[:, 0], lp_safe, in_range)
+        _write_row_guarded(vc, vn[:, 0], lp_safe, in_range)
+
+        hq, dh = qb.shape[2], qb.shape[3]
+        hkv = kc.shape[2]
+        qg = qb.reshape(qb.shape[0], 1, hkv, hq // hkv, dh)
+        kcq, vcq = kc.to(qb.dtype), vc.to(qb.dtype)
+        scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, kcq).float() * (dh ** -0.5)
+        if cfg.attn_logit_softcap > 0:
+            scores = softcap(scores, cfg.attn_logit_softcap)
+        jg = start + torch.arange(s_loc, device=qb.device)
+        p64 = pos.long()[:, None]
+        mask = jg[None, :] <= p64
+        if window > 0:
+            mask = mask & (jg[None, :] > (p64 - window))
+        scores = scores.masked_fill(~mask[:, None, None, None, :], NEG_INF)
+
+        m = mesh.pmax(scores.amax(-1, keepdim=True), ax)
+        p = torch.exp(scores - m)
+        l = mesh.psum(p.sum(-1, keepdim=True), ax)
+        o = mesh.psum(torch.einsum("bhgqk,bkhd->bqhgd", p.to(qb.dtype), vcq), ax)
+        out = o / l.clamp(min=1e-20).to(o.dtype).permute(0, 3, 1, 2, 4)
+        return out.reshape(qb.shape[0], 1, hq, vcq.shape[-1])
+
+    rep4 = P(b_ax, None, None, None)
+    shard4 = P(b_ax, ax, None, None)
+    return shard_map(body, mesh, in_specs=(rep4, rep4, rep4, shard4, shard4, P(b_ax)),
+                     out_specs=rep4)(q, k_new, v_new, cache["k"], cache["v"], cache_pos)
 
 
 def _paged_append_int8(pages, scales, phys, off, new):
@@ -353,12 +448,22 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 
     absorb=False: paper-faithful, decompress every cached step, then attend.
     absorb=True: weight-absorbed, scores in latent space; never builds
-    per-head K/V for the cache."""
+    per-head K/V for the cache.  Under a shard context whose model axis
+    divides the cache length, the sequence-sharded decode runs instead."""
     dn = cfg.qk_nope_head_dim
     q_nope, q_rope = _mla_q(params, cfg, x, cache_pos[:, None])
     ckv_new, krope_new = _mla_ckv(params, cfg, x, cache_pos[:, None])
     pos = cache_pos.long()
     rows = torch.arange(x.shape[0], device=x.device)
+
+    ctx = current_ctx()
+    if ctx is not None and divides(cache["ckv"].shape[1], ctx.tp):
+        out = _mla_decode_seqsharded(cfg, params, q_nope, q_rope, ckv_new, krope_new,
+                                     cache, cache_pos, ctx, absorb)
+        cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
+        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+
     cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
     cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
 
@@ -385,6 +490,58 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
         out = torch.einsum("bhst,bthk->bshk", w, v)
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return out, cache
+
+
+def _mla_decode_seqsharded(cfg: ModelConfig, params, q_nope, q_rope, ckv_new,
+                           krope_new, cache, cache_pos, ctx, absorb: bool) -> torch.Tensor:
+    """MLA decode with the compressed cache split over the model axis on
+    the sequence (flash-decode combine over the model axis, as the GQA
+    one).  absorb=True scores in latent space; absorb=False decompresses
+    only this rank's chunk.  Returns out (B,1,H,dv)."""
+    mesh, ax = ctx.mesh, ctx.model_axis
+    dn = cfg.qk_nope_head_dim
+    b_ax = batch_axis(ctx, q_nope.shape[0])
+    scale = (dn + cfg.qk_rope_head_dim) ** -0.5
+    wkb = params["wkv_b"]                       # (r, H, dn+dv), whole on every rank
+    # latent queries (absorbed); the naive body reads q_nope itself
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkb[..., :dn]) if absorb else q_nope
+
+    def body(qn, qr, ql, cn, kn, ckv, krope, pos, wkb_b):
+        s_loc = ckv.shape[1]
+        start, in_range, lp_safe = _seq_chunk(mesh, ax, s_loc, pos)
+        _write_row_guarded(ckv, cn[:, 0], lp_safe, in_range)
+        _write_row_guarded(krope, kn[:, 0], lp_safe, in_range)
+
+        ckv_c, krope_c = ckv.to(qn.dtype), krope.to(qn.dtype)
+        jg = start + torch.arange(s_loc, device=qn.device)
+        mask = jg[None, :] <= pos.long()[:, None]
+        if absorb:
+            scores = (torch.einsum("bshr,btr->bhst", ql, ckv_c)
+                      + torch.einsum("bshk,btk->bhst", qr, krope_c)).float() * scale
+        else:
+            kv = torch.einsum("btr,rhk->bthk", ckv_c, wkb_b)       # local decompress
+            scores = (torch.einsum("bshk,bthk->bhst", qn, kv[..., :dn])
+                      + torch.einsum("bshk,btk->bhst", qr, krope_c)).float() * scale
+        scores = scores.masked_fill(~mask[:, None, None, :], NEG_INF)
+        m = mesh.pmax(scores.amax(-1, keepdim=True), ax)
+        p = torch.exp(scores - m)
+        l = mesh.psum(p.sum(-1, keepdim=True), ax)
+        w = p.to(qn.dtype)
+        if absorb:
+            o_lat = mesh.psum(torch.einsum("bhst,btr->bshr", w, ckv_c), ax)
+            o_lat = o_lat / l.clamp(min=1e-20).to(o_lat.dtype).permute(0, 2, 1, 3)
+            return torch.einsum("bshr,rhk->bshk", o_lat, wkb_b[..., dn:])
+        o = mesh.psum(torch.einsum("bhst,bthk->bshk", w, kv[..., dn:]), ax)
+        return o / l.clamp(min=1e-20).to(o.dtype).permute(0, 2, 1, 3)
+
+    rep3 = P(b_ax, None, None)
+    rep4 = P(b_ax, None, None, None)
+    shard3 = P(b_ax, ax, None)
+    return shard_map(body, mesh,
+                     in_specs=(rep4, rep4, rep4, rep3, rep3, shard3, shard3, P(b_ax),
+                               P(None, None, None)),
+                     out_specs=rep4)(q_nope, q_rope, q_lat, ckv_new, krope_new,
+                                     cache["ckv"], cache["krope"], cache_pos, wkb)
 
 
 # =============================================================================

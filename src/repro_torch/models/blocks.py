@@ -4,17 +4,31 @@ FFN/MoE -> residual), the mamba block (pre-norm -> Mamba2 mixer ->
 residual, no FFN), whisper's decoder block (self-attention, cross-
 attention over the encoder memory, FFN) and its non-causal encoder block.
 Block params are plain dicts; a stack of L layers is the same dict with a
-leading L axis (models/model.py).
+leading L axis (models/model.py).  Under a shard context whose model axis
+divides the expert count, a MoE layer takes the expert-parallel path
+(``models/moe_sharded.py``), which ignores ``dispatch_mode``, as the
+reference's does.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.context import current_ctx
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ffn_apply, init_ffn, init_rms_norm, rms_norm
+from repro_torch.models.moe_sharded import moe_apply_sharded
+
+
+def _moe(p, cfg: ModelConfig, h, placement, dispatch_mode: str, stats: bool):
+    """The expert-parallel path when a shard context is active and its
+    model axis divides the experts, else the single-device MoE."""
+    ctx = current_ctx()
+    if ctx is not None and cfg.num_experts % ctx.tp == 0:
+        return moe_apply_sharded(p, cfg, h, placement, ctx, stats)
+    return moe_lib.moe_apply(p, cfg, h, placement, dispatch_mode, stats)
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool,
@@ -54,7 +68,7 @@ def _ffn_half(p: dict, cfg: ModelConfig, x, is_moe_layer: bool, placement,
     h = rms_norm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
     aux = {}
     if is_moe_layer:
-        y, aux = moe_lib.moe_apply(p["moe"], cfg, h, placement, dispatch_mode, stats)
+        y, aux = _moe(p["moe"], cfg, h, placement, dispatch_mode, stats)
     else:
         y = ffn_apply(p["ffn"], h)
     return x + y, aux

@@ -4,8 +4,8 @@ The same frozen dataclass and field names as the reference, so one config
 file reads the same in both packages; ``adtype`` returns a torch dtype.  The
 parameter counts the simulator's cost model reads are the reference's.  The
 shape cells are the reference's table (the train step takes a cell);
-``cell_applicable`` belongs to the dry-run and waits for the sharding slice
-(ROADMAP.md, Queue 1 item 16).
+``cell_applicable`` belongs to the dry-run and waits for the dry-run slice
+(ROADMAP.md, Queue 1 item 16e).
 """
 from __future__ import annotations
 

@@ -67,6 +67,8 @@ def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
     slice, not two copies of the whole tensor (one (128, 5120, 8192) expert
     tensor of llama4 would need ~43 GB of them)."""
     shape = tuple(shape)
+    if gen.device.type == "meta":                  # shapes only: nothing to draw
+        return torch.empty(shape, dtype=dtype, device="meta")
     if math.prod(shape) <= CHUNKED_DRAW_ELEMENTS:
         return (torch.randn(shape, generator=gen, device=gen.device) * std).to(dtype)
     out = torch.empty(shape, dtype=dtype, device=gen.device)

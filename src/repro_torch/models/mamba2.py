@@ -18,8 +18,9 @@ What differs from the reference, with the numerics kept:
   left to right and would build (B, nc, H, Q, Q, P) tensors).  All in f32.
 * The conv tail a prefill leaves is the pre-conv input it already holds
   (the reference recomputes the input projection for it: the same product).
-* The reference's head-sharding constraint waits for the sharding slice
-  (ROADMAP.md, Queue 1 item 16).
+* The reference's head-sharding constraints move no value and are left
+  out (the port keeps activations whole on every rank);
+  ``distributed/sharding.py`` keeps their choice of layout.
 """
 from __future__ import annotations
 

@@ -24,22 +24,36 @@ branches and selects).
 
 ``forward_train`` is the training forward (no cache).  With ``cfg.remat``
 each stack unit runs under ``torch.utils.checkpoint`` (non-reentrant), as
-the reference wraps its scan bodies in ``jax.checkpoint`` with
-``remat_policy="none"`` (nothing saved): each layer of an attention stack
-(the interleaved stack's layers one by one, where the reference
-checkpoints a super-block), each Mamba2 layer and shared-attention call of
-an SSM or hybrid stack, and each decoder layer of whisper.  The other
-policies ("dots", "full") wait for the sharding slice (ROADMAP.md, Queue 1
-item 16).
+the reference wraps its scan bodies in ``jax.checkpoint``: each layer of an
+attention stack (the interleaved stack's layers one by one, where the
+reference checkpoints a super-block), each Mamba2 layer and
+shared-attention call of an SSM or hybrid stack, and each decoder layer of
+whisper.  ``cfg.remat_policy`` picks what a unit keeps for the backward
+pass: "none" nothing (everything is recomputed), "dots" the outputs of its
+matrix products, anything else everything (selective-checkpoint contexts
+in place of the reference's ``checkpoint_dots`` and
+``everything_saveable``).
+
+Under a shard context (``distributed/context.py``) the MoE layers take the
+expert-parallel path and the slot decodes the sequence-sharded ones
+(``models/blocks.py``, ``models/attention.py``).  ``ctx.paired_lg`` and
+``ctx.unroll`` have no effect: the reference pairs (local, global) layers
+to keep a runtime flag out of its scan, and the port's loop already gives
+each layer its own static flag, so its stack is the paired stack.  The
+reference's sharding constraints on the residual stream move no value and
+are left out; ``distributed/sharding.py`` keeps their choice of layout.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import device as devlib
+from repro_torch.distributed.context import current_ctx, shard_ctx
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.config import ModelConfig
@@ -94,14 +108,26 @@ def _hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
 # init
 # =============================================================================
 
+class _NoDraw:
+    """Stands in for a generator on the meta device, where nothing is
+    drawn: ``layers.normal`` gives an empty meta tensor of the shape."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Seeded random parameters on ``device`` (the card by default), drawn
     from the same distributions as the reference's init and laid out in its
     tree (not the same numbers: bridge the reference's weights with
-    ``models.convert``)."""
-    dev = devlib.resolve(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    ``models.convert``).  On ``device="meta"`` the tree holds shapes and
+    dtypes only (``abstract_params``)."""
+    dev = devlib.resolve(device, meta_ok=True)
+    if dev.type == "meta":
+        gen = _NoDraw(dev)
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     params: Dict[str, Any] = {
         "embed": init_embed(gen, cfg.vocab_size, cfg.d_model, cfg.adtype,
                             cfg.tie_embeddings),
@@ -146,6 +172,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     params["blocks"] = _stack([B.init_block(gen, cfg, cfg.layer_is_moe(i))
                                for i in range(n_pro, cfg.num_layers)])
     return params
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree on the meta device: every leaf's shape and dtype,
+    nothing allocated (the reference's ``abstract_params``)."""
+    return init_params(cfg, device="meta")
 
 
 # =============================================================================
@@ -301,17 +333,50 @@ def _ssm_layers(params, cfg: ModelConfig, cache) -> Iterator[Tuple[dict, Any, bo
         yield _layer(params["epi_blocks"], j), sub(cache, "epi", j), False
 
 
+_MATMULS = frozenset(getattr(torch.ops.aten, name).default for name in (
+    "mm", "bmm", "addmm", "baddbmm", "matmul", "linear",
+    "_scaled_dot_product_efficient_attention", "_scaled_dot_product_flash_attention"))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The "dots" policy: keep the outputs of matrix products, recompute
+    the rest (the reference's ``checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_all(ctx, op, *args, **kwargs):
+    """Any policy but "none" and "dots": keep everything (the reference's
+    ``everything_saveable``)."""
+    return CheckpointPolicy.MUST_SAVE
+
+
+def _remat_policy(cfg: ModelConfig):
+    """The selective-checkpoint context of ``cfg.remat_policy``, None for
+    "none" (nothing kept, the plain checkpoint)."""
+    if cfg.remat_policy == "none":
+        return None
+    policy = _save_dots if cfg.remat_policy == "dots" else _save_all
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
 def _unit(cfg: ModelConfig, fn, *args):
-    """``fn(*args)``: one stack unit, recomputed in the backward pass
-    instead of saved when ``cfg.remat`` is set."""
+    """``fn(*args)``: one stack unit, recomputed in the backward pass as
+    ``cfg.remat_policy`` says when ``cfg.remat`` is set.  The recomputation
+    runs under the shard context of the forward: the context is
+    thread-local, and autograd runs a CUDA backward on a thread of its own."""
     if not cfg.remat:
         return fn(*args)
-    if cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r}: only 'none' (the policy "
-            "make_train_step sets) is ported; the others wait for the sharding "
-            "slice (ROADMAP.md, Queue 1 item 16)")
-    return checkpoint(fn, *args, use_reentrant=False)
+    ctx = current_ctx()
+
+    def unit(*a):
+        with shard_ctx(ctx):
+            return fn(*a)
+
+    context_fn = _remat_policy(cfg)
+    if context_fn is None:
+        return checkpoint(unit, *args, use_reentrant=False)
+    return checkpoint(unit, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, block):

@@ -163,6 +163,35 @@ def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
     return (idx.long()[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
+def _token_table(slots: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+                 ns: int, cap: int) -> torch.Tensor:
+    """(S, C) token-index table: which token sits in slot (s, c); ``t``
+    (the token count) where none does.  Dropped selections land in an
+    overflow row S that is cut off."""
+    t, k = slots.shape
+    tok_ids = torch.arange(t, dtype=torch.int32, device=slots.device).repeat_interleave(k)
+    slot_flat = torch.where(keep, slots.long(), ns).reshape(-1)
+    pos_flat = torch.where(keep, pos.long(), 0).reshape(-1)
+    table = torch.full((ns + 1, cap), t, dtype=torch.int32, device=slots.device)
+    return table.index_put((slot_flat, pos_flat), tok_ids)[:ns]
+
+
+def _combine(ye: torch.Tensor, row_idx: torch.Tensor, gates: torch.Tensor,
+             dtype) -> torch.Tensor:
+    """Each token's k rows of ``ye`` (n, C, d) gathered by ``row_idx``
+    (T, k; n * C reads a zero row) and summed, gated, in f32 in selection
+    order: a fixed order, where a scatter-add on the card is atomic and
+    unordered."""
+    d = ye.shape[-1]
+    rows = torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)])
+    picked = rows[row_idx].float()                                 # (T, k, d)
+    g = gates.float()
+    acc = picked[:, 0] * g[:, 0:1]
+    for j in range(1, row_idx.shape[1]):
+        acc = torch.addcmul(acc, picked[:, j], g[:, j:j + 1])
+    return acc.to(dtype)
+
+
 def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
               placement: Optional[ExpertPlacement] = None,
               dispatch_mode: str = "dense", return_stats: bool = False):
@@ -200,13 +229,7 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
         ye = _expert_ffn(params, xe)
         y = torch.einsum("tec,ecd->td", combine, ye)
     elif dispatch_mode in ("gather", "fused"):
-        # token-index table (S, C): which token sits in slot (s, c)
-        tok_ids = torch.arange(t, dtype=torch.int32, device=dev).repeat_interleave(k)
-        slot_flat = torch.where(keep, slot_idx.long(), ns).reshape(-1)  # dropped -> overflow row S
-        pos_flat = torch.where(keep, pos.long(), 0).reshape(-1)
-        table = torch.full((ns + 1, cap), t, dtype=torch.int32, device=dev)  # t == "no token"
-        table[slot_flat, pos_flat] = tok_ids
-        table = table[:ns]                                         # (S, C)
+        table = _token_table(slot_idx, pos, keep, ns, cap)          # (S, C)
         valid = table < t
         src = table.clamp(max=t - 1).long()
         xe = torch.where(valid[..., None], xf[src], 0).to(x.dtype)
@@ -214,16 +237,9 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
             ye = expert_ffn(params, xe)                            # 3x moe_gemm
         else:
             ye = _expert_ffn(params, xe)
-        # combine: each token gathers its k expert rows (a dropped selection
-        # reads the zero row S*C) and sums them, gated, in selection order
-        rows = torch.cat([ye.reshape(ns * cap, d), ye.new_zeros(1, d)])
+        # a dropped selection reads the zero row S*C
         row_idx = torch.where(keep, slot_idx.long() * cap + pos.long(), ns * cap)
-        picked = rows[row_idx].float()                             # (T, k, d)
-        g = gates.float()
-        acc = picked[:, 0] * g[:, 0:1]
-        for j in range(1, k):
-            acc.addcmul_(picked[:, j], g[:, j:j + 1])
-        y = acc.to(x.dtype)
+        y = _combine(ye, row_idx, gates, x.dtype)
     else:
         raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
 
@@ -233,7 +249,7 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     # ---- router aux (always fp32) -------------------------------------------
     ids_flat = expert_ids.reshape(-1).long()
     me = probs.mean(0)                                             # (E,) mean prob, logical
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add(
         0, ids_flat, torch.ones_like(ids_flat, dtype=torch.float32)) / (t * k)
     aux = {
         "load_balance_loss": e * torch.sum(me * ce),

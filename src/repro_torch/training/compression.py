@@ -6,9 +6,8 @@ decompress.  ``quantize_int8`` is also what the paged KV cache stores its
 int8 pages with.  Stochastic rounding draws from a ``torch.Generator``
 where the reference takes a jax key, so its draws differ from the
 reference's; its properties (unbiased, inside +-127) are what carries
-over.  ``compressed_psum`` (the cross-pod reduce) needs
-``torch.distributed`` and waits for the sharding slice (ROADMAP.md, Queue 1
-item 16).
+over.  ``compressed_psum`` is the cross-pod reduce over a mesh axis of
+``torch.distributed`` ranks, each rank holding its own gradients.
 """
 from __future__ import annotations
 
@@ -16,6 +15,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.context import current_ctx
 from repro_torch.tree import leaves, map_tree, unflatten
 
 
@@ -65,3 +65,27 @@ def quantize_int8(g: torch.Tensor, generator: Optional[torch.Generator] = None
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
     return (q.float() * scale).to(dtype)
+
+
+def compressed_psum(grads: Any, axis_name: str, frac: float = 0.0, int8: bool = False,
+                    state: Optional[TopKState] = None, mesh=None):
+    """Cross-pod gradient reduction with optional compression: the sum over
+    the ranks of ``axis_name`` of each rank's gradients.  With ``frac > 0``
+    (and a state) top-k with error feedback runs first; with ``int8`` each
+    rank sends int8 quants, the int32 sum of the quants is scaled by the
+    largest of the ranks' scales.  ``mesh`` defaults to the active shard
+    context's.  Returns (reduced grads, new state)."""
+    mesh = mesh if mesh is not None else current_ctx().mesh
+    new_state = state
+    if frac > 0 and state is not None:
+        grads, new_state = topk_compress(grads, state, frac)
+    if int8:
+        def qd(g):
+            q, s = quantize_int8(g)
+            qsum = mesh.psum(q.to(torch.int32), axis_name)
+            smax = mesh.pmax(s, axis_name)       # conservative shared scale
+            return dequantize_int8(qsum, smax, g.dtype)
+        grads = map_tree(qd, grads)
+    else:
+        grads = map_tree(lambda g: mesh.psum(g, axis_name), grads)
+    return grads, new_state

@@ -10,8 +10,8 @@ back to its dtype and the moments to ``moment_dtype``.  Leaves are walked
 in the reference's flatten order (``repro_torch.tree``), which fixes
 ``global_norm``'s summation order.  Nothing is updated in place: as the
 reference returns new arrays, ``adamw_update`` returns new tensors.
-``abstract_adamw`` (the dry-run's shapes) waits for the sharding slice
-(ROADMAP.md, Queue 1 item 16).
+``abstract_adamw`` (the dry-run's shapes) waits for the dry-run slice
+(ROADMAP.md, Queue 1 item 16e).
 """
 from __future__ import annotations
 

@@ -832,7 +832,9 @@ def test_port_imports_neither_jax_nor_reference():
     workloads and the cluster plane (dispatch, cluster, drills) are among
     the modules walked, and so are the simulator plane, the Mamba2 mixer,
     every config of the architecture registry and the training modules
-    (a bf16 checkpoint saved and restored pulls in no ml_dtypes either)."""
+    (a bf16 checkpoint saved and restored pulls in no ml_dtypes either),
+    and the sharding layer and serving driver (a one-rank gloo mesh, its
+    spec trees and a context step run without them)."""
     code = """
 import importlib, pkgutil, sys
 import repro_torch
@@ -862,7 +864,10 @@ need = {"repro_torch.core.placement", "repro_torch.core.affinity",
         "repro_torch.configs.mamba2_370m", "repro_torch.configs.zamba2_1_2b",
         "repro_torch.models.mamba2", "repro_torch.training.optimizer",
         "repro_torch.training.checkpoint", "repro_torch.training.data",
-        "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.tree"}
+        "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.tree",
+        "repro_torch.distributed.context", "repro_torch.distributed.sharding",
+        "repro_torch.models.moe_sharded", "repro_torch.launch.mesh",
+        "repro_torch.launch.serve"}
 assert need <= set(sys.modules), need - set(sys.modules)
 from repro_torch.configs import ASSIGNED_ARCHS, list_archs, get_config
 assert len(ASSIGNED_ARCHS) == 10 and len(list_archs()) == 11
@@ -883,6 +888,21 @@ from repro_torch.training.checkpoint import restore_checkpoint, save_checkpoint
 with tempfile.TemporaryDirectory() as d:
     save_checkpoint(d, 1, {"w": torch.ones(3, dtype=torch.bfloat16)})
     assert restore_checkpoint(d, {"w": torch.zeros(3, dtype=torch.bfloat16)})[1]["w"].sum() == 3
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import make_ctx, make_decode_step
+from repro_torch.distributed.sharding import param_specs, named
+from repro_torch.launch.serve import build_cluster, serve
+from repro_torch.configs import get_smoke_config
+from repro_torch.models import model as M
+from repro_torch.models.config import ShapeCell
+ctx = make_ctx(make_mesh((1, 1), ("data", "model"), device="cpu"))
+assert named(ctx.mesh, param_specs(get_config("qwen3-30b-a3b"), ctx))
+cfg = get_smoke_config("qwen3-30b-a3b")
+step = make_decode_step(cfg, ctx, ShapeCell("d", 8, 2, "decode"))[0]
+nxt, _ = step(M.init_params(cfg, device="cpu"), M.init_cache(cfg, 2, 8, device="cpu"),
+              {"tokens": torch.zeros((2, 1), dtype=torch.int32),
+               "cache_pos": torch.zeros(2, dtype=torch.int32)})
+assert nxt.shape == (2,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 assert not bad, bad
