@@ -179,6 +179,7 @@ import copy
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2696,8 +2697,10 @@ def _train_t1c(torch) -> None:
     remat gates."""
     from repro_torch.configs import at_depth, get_config
     from repro_torch.distributed.context import shard_ctx
+    from repro_torch.distributed.sharding import input_shardings, place
     from repro_torch.launch import steps as S
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.config import ShapeCell
     from repro_torch.training import optimizer as O
 
     full = get_config(ARCH)
@@ -2710,12 +2713,17 @@ def _train_t1c(torch) -> None:
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     opt = _train_opt(2 * T1_STEPS)
-    carry = [_family_params(torch, cfg, label)]
+    cell = ShapeCell("T1c", T1_SHAPE[1], T1_SHAPE[0], "train")
+    fn, (pspec, _), _ = S.make_train_step(cfg, ctx, cell, opt, remat=False)
+    carry = [place(_family_params(torch, cfg, label), pspec, ctx.mesh)]
     carry.append(O.init_adamw(carry[0], opt))
-    fn = S.make_train_step(cfg, ctx, None, opt, remat=False)[0]
     data = _stream(cfg, T1_SHAPE)
-    recs = _timed_steps(torch, fn, carry, (_train_batch(torch, cfg, data, i, DEVICE)
-                                           for i in range(T1_STEPS)), label)
+
+    def stored_batch(i):
+        b = _train_batch(torch, cfg, data, i, DEVICE)
+        return place(b, input_shardings(cfg, ctx, cell, b), ctx.mesh)
+
+    recs = _timed_steps(torch, fn, carry, (stored_batch(i) for i in range(T1_STEPS)), label)
     med = _step_summary(torch, recs, T1_SHAPE[0] * T1_SHAPE[1], label, T1_STEPS - 2)
     t1 = T1_RESULT.get("T1")
     if t1:
@@ -2975,6 +2983,7 @@ def _ctx_serve(torch, cfg, params, ctx, prompts, label: str,
     prefill step's first tokens, a prefill into a cache with room for
     ``steps`` more positions (its snapshot kept), then ``steps`` timed
     decode steps, each row fed its own last token."""
+    from repro_torch.distributed.sharding import gather, input_shardings, place
     from repro_torch.launch import steps as S
     from repro_torch.models import model as M
     from repro_torch.models.config import ShapeCell
@@ -2984,30 +2993,37 @@ def _ctx_serve(torch, cfg, params, ctx, prompts, label: str,
     _free(torch)
     torch.cuda.reset_peak_memory_stats()
     pre = S.make_prefill_step(cfg, ctx, ShapeCell("p", p, b, "prefill"))[0]
-    dec = S.make_decode_step(cfg, ctx, ShapeCell("d", p + steps, b, "decode"))[0]
+    dcell = ShapeCell("d", p + steps, b, "decode")
+    dec = S.make_decode_step(cfg, ctx, dcell)[0]
+    params, cache = _on_store(torch, cfg, ctx, params,
+                              M.init_cache(cfg, b, p + steps, device=DEVICE), b, p + steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     first, pcache = pre(params, {"tokens": prompts, "placements": pl})
     torch.cuda.synchronize()
     prefill_ms = 1e3 * (time.perf_counter() - t0)
     del pcache
-    cache = M.init_cache(cfg, b, p + steps, device=DEVICE)
+    first = gather(first)
     with torch.no_grad(), _ctx_scope(ctx):
         M.prefill(params, cfg, prompts, cache, placements=pl)
-    snapshot = map_tree(torch.clone, cache)
+    snapshot = map_tree(lambda x: gather(x).clone(), cache)
     nxt, toks, ms = first, [], []
     with _CollectiveCount() as coll:
         for i in range(steps):
+            batch = {"tokens": nxt[:, None], "placements": pl,
+                     "cache_pos": torch.full((b,), p + i, dtype=torch.int32, device=DEVICE)}
+            if ctx is not None:
+                batch = place(batch, input_shardings(cfg, ctx, dcell, batch), ctx.mesh)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            nxt, cache = dec(params, cache, {
-                "tokens": nxt[:, None], "placements": pl,
-                "cache_pos": torch.full((b,), p + i, dtype=torch.int32, device=DEVICE)})
+            nxt, cache = dec(params, cache, batch)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
+            nxt = gather(nxt)
             toks.append(nxt)
     del cache
     out = dict(first=first, tokens=torch.stack(toks), ms=ms, snapshot=snapshot,
+               seq=p + steps,
                collectives={k: v // steps for k, v in coll.counts.items()},
                peak=torch.cuda.max_memory_allocated() / 2**30, prefill_ms=prefill_ms)
     log(f"ctx[{label}]: prefill step {prefill_ms:.3f} ms ({b} x {p}), decode ms a step "
@@ -3017,16 +3033,29 @@ def _ctx_serve(torch, cfg, params, ctx, prompts, label: str,
     return out
 
 
+def _on_store(torch, cfg, ctx, params, cache, b: int, s: int):
+    """(params, cache of ``b`` rows x ``s`` positions) on the store of
+    ``ctx``'s mesh (each rank's block of every leaf its spec splits; on one
+    rank the block is the whole tensor, held without a copy), or as they
+    are without a context."""
+    from repro_torch.distributed.sharding import cache_specs, param_specs, place
+    if ctx is None:
+        return params, cache
+    return (place(params, param_specs(cfg, ctx), ctx.mesh),
+            place(cache, cache_specs(cfg, ctx, b, s), ctx.mesh))
+
+
 def _ctx_step_logits(torch, cfg, params, ctx, run: dict):
     """One decode step, teacher-forced: ``run``'s first tokens on a copy of
-    its post-prefill cache, under ``ctx`` (MLA absorbed as it says);
-    returns (f32 logits, aux with the MoE stats)."""
+    its post-prefill cache, under ``ctx`` (MLA absorbed as it says; on the
+    store); returns (f32 logits, aux with the MoE stats)."""
     from repro_torch.launch import steps as S
     from repro_torch.models import model as M
     from repro_torch.tree import map_tree
     b, p = run["first"].shape[0], CTX_PROMPT
     absorb = ctx.mla_absorb if ctx is not None else False
-    cache = map_tree(torch.clone, run["snapshot"])
+    params, cache = _on_store(torch, cfg, ctx, params, map_tree(torch.clone, run["snapshot"]),
+                              b, run["seq"])
     with torch.no_grad(), _ctx_scope(ctx):
         logits, _, aux = M.decode_step(
             params, cfg, run["first"][:, None], cache,
@@ -3040,6 +3069,7 @@ def _moe_ids_same_input(torch, cfg, params, ctx, run: dict) -> tuple:
     ``moe_apply_sharded`` and ``moe_apply`` (dense, the plain path's):
     expert ids and counts equal, outputs within the bf16 tolerance.
     Returns (layers checked, largest output difference)."""
+    from repro_torch.distributed.context import gather_tree
     from repro_torch.models import blocks as Bk
     from repro_torch.models import moe as MoE
     from repro_torch.models.moe_sharded import moe_apply_sharded
@@ -3055,8 +3085,9 @@ def _moe_ids_same_input(torch, cfg, params, ctx, run: dict) -> tuple:
     worst = -math.inf
     with torch.no_grad():
         for p, h, plc in seen:
-            ys, a_s = moe_apply_sharded(p, cfg, h, plc, ctx, True)
-            yp, a_p = MoE.moe_apply(p, cfg, h, plc, "dense", True)
+            ys, a_s = moe_apply_sharded(gather_tree(p, keep=("w_gate", "w_up", "w_down")),
+                                        cfg, h, plc, ctx, True)
+            yp, a_p = MoE.moe_apply(gather_tree(p), cfg, h, plc, "dense", True)
             if not (torch.equal(a_s["expert_ids"], a_p["expert_ids"])
                     and torch.equal(a_s["expert_counts"], a_p["expert_counts"])):
                 raise AssertionError("ctx: the sharded MoE routed otherwise than moe_apply "
@@ -3231,6 +3262,126 @@ def ctx_phase(torch) -> dict:
     return runs
 
 
+# ----------------------------------------------------------------------------- store phase
+
+def _storage_bytes(tensors) -> int:
+    """The bytes of the storages under ``tensors``, each storage once."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def store_phase(torch) -> None:
+    """The store on the card: on the (1, 1) mesh of a one-rank NCCL group,
+    qwen3 at T1_DEPTH layers (bf16, seed weights), the store of T1c's
+    train cell (params, AdamW state with the dry run's bf16 moments, the
+    batch) and of a decode cell of CTX_ROWS rows (params, cache, batch).
+    The bytes of its storages on the card must equal, byte for byte, the
+    dry run's per-rank argument bytes for the same arch, depth, batch,
+    sequence length and mesh; the growth of ``torch.cuda.memory_allocated``
+    is printed beside them (the allocator rounds each block up to 512 B)."""
+    from repro_torch.configs import at_depth, get_config, input_specs
+    from repro_torch.distributed.context import Mesh
+    from repro_torch.distributed.sharding import (cache_specs, local_bytes, local_of,
+                                                  param_specs, place, stored_zeros)
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeCell
+    from repro_torch.training.optimizer import AdamWConfig, init_adamw
+    from repro_torch.tree import leaves
+
+    t0 = time.perf_counter()
+    mesh = _ctx_mesh(torch)
+    ctx = S.make_ctx(mesh)
+    cfg = at_depth(get_config(ARCH), T1_DEPTH)
+    dry_ctx = S.make_ctx(Mesh((1, 1), ("data", "model"), rank=0))
+    for cell in (ShapeCell("T1c train", T1_SHAPE[1], T1_SHAPE[0], "train"),
+                 ShapeCell("decode", CTX_PROMPT + CTX_STEPS, CTX_ROWS, "decode")):
+        label = f"{ARCH} {cfg.num_layers} layers, {cell.name} {cell.global_batch} x {cell.seq_len}"
+        _free(torch)
+        before = torch.cuda.memory_allocated()
+        zeros = {k: torch.zeros(v.shape, dtype=v.dtype, device=DEVICE)
+                 for k, v in input_specs(cfg, cell).items()}
+        batch, bshard = S.train_inputs(cfg, ctx, cell, zeros)
+        params = place(M.init_params(cfg, seed=SEED, device=DEVICE), param_specs(cfg, ctx), mesh)
+        if cell.kind == "train":
+            args = [params, init_adamw(params, AdamWConfig()), place(batch, bshard, mesh)]
+        else:
+            n = cell.seq_len
+            args = [params, stored_zeros(M.cache_shapes(cfg, cell.global_batch, n),
+                                         cache_specs(cfg, ctx, cell.global_batch, n), mesh,
+                                         cfg.adtype, DEVICE),
+                    place(batch, bshard, mesh)]
+        del zeros, batch, params
+        torch.cuda.synchronize()
+        grew = torch.cuda.memory_allocated() - before
+        held = _storage_bytes(map(local_of, leaves(args)))
+        want, _ = D.argument_bytes(D.build_cell(cfg, cell, dry_ctx)[1])
+        log(f"store[{label}]: storage on the card {held} B, local_bytes {local_bytes(args)} B, "
+            f"the dry run's per-rank argument bytes {want} B (mesh (1, 1)); "
+            f"torch.cuda.memory_allocated grew {grew} B ({grew - held:+d} B of allocator "
+            f"rounding)")
+        if not held == local_bytes(args) == want:
+            raise AssertionError(f"store[{label}]: {held} B on the card, the dry run says {want}")
+        del args
+    _free(torch)
+    log(f"store phase: {time.perf_counter() - t0:.1f} s")
+
+
+# ----------------------------------------------------------------------------- dry-run phase
+
+DRYRUN_CELLS = (("qwen3-30b-a3b", "decode_32k", False), ("qwen3-30b-a3b", "decode_32k", True),
+                ("qwen3-30b-a3b", "train_4k", False), ("qwen3-30b-a3b", "train_4k", True),
+                ("qwen2-72b", "train_4k", False))
+
+
+def dryrun_phase(torch) -> None:
+    """``python -m repro_torch.launch.dryrun`` as a user runs it, one
+    subprocess a cell at full depth, all started together (each starts the
+    fake group of its 256 or 512 ranks in its own process): each must exit
+    0; its record's per-rank argument bytes, peak, FLOPs and collective
+    bytes are printed beside the card's memory."""
+    t0 = time.perf_counter()
+    out = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    card = torch.cuda.get_device_properties(0).total_memory
+    procs = []
+    for arch, cell, multi_pod in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell",
+               cell, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
+        procs.append((arch, cell, multi_pod, time.perf_counter(),
+                      subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for arch, cell, multi_pod, t1, proc in procs:
+        try:
+            text, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        wall = time.perf_counter() - t1
+        mesh = "2x16x16" if multi_pod else "16x16"
+        if proc.returncode != 0:
+            failed.append((arch, cell, mesh, proc.returncode))
+            log(f"dryrun[{arch} {cell} {mesh}]: exit {proc.returncode}\n{text[-3000:]}")
+            continue
+        rec = json.loads((out / f"{arch}__{cell}__{mesh}.json").read_text())
+        mem = rec["memory_analysis"]
+        log(f"dryrun[{arch} {cell} {mesh}]: exit 0 in {wall:.1f} s wall; per rank: argument "
+            f"{mem['argument_size_in_bytes']} B, output {mem['output_size_in_bytes']} B, peak "
+            f"{mem['peak_size_in_bytes']} B ({mem['peak_size_in_bytes'] / card:.2f}x the card's "
+            f"{card} B), {rec['flops_per_dev']:.4e} FLOPs, collective wire bytes "
+            f"{rec['collective_bytes_per_dev']:.6e} ({rec['collectives']['counts']}), "
+            f"dominant {rec['dominant']}")
+    log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError(f"dryrun phase: {failed}")
+
+
 # ----------------------------------------------------------------------------- serve phase
 
 SERVE_RUNS = (("plain", []), ("--fail-engine 1", ["--fail-engine", "1"]))
@@ -3385,8 +3536,10 @@ def main() -> int:
     variants = variants_phase(torch)
     ssm = ssm_phase(torch)
     ctx = ctx_phase(torch)
+    store_phase(torch)
     train = train_phase(torch)
     serve_phase()
+    dryrun_phase(torch)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

@@ -6,15 +6,18 @@ and smoke_config() (a reduced same-family variant for CPU tests), with the
 values of ``repro.configs``.  All of them feed the simulator's cost model,
 and ``models.model`` runs every one.  ``at_depth`` cuts a config's depth
 (chip_smoke's cuts) and ``depth_pair`` gives the reference's two probe
-depths; the dry-run's input stand-ins (``input_specs``, ``dryrun_cells``)
-wait for the dry-run slice (ROADMAP.md, Queue 1 item 16e).
+depths.  ``get_cell``, ``input_specs`` (meta-device stand-ins for a cell's
+inputs) and ``dryrun_cells`` serve the dry run (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List, Optional
 
-from repro_torch.models.config import ModelConfig
+import torch
+
+from repro_torch.models.config import (SHAPE_CELLS, ModelConfig, ShapeCell,
+                                       cell_applicable)
 
 _MODULES = {
     "deepseek-v2-236b": "deepseek_v2_236b",
@@ -51,6 +54,59 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return _module(arch).smoke_config()
 
 
+def get_cell(name: str) -> ShapeCell:
+    for c in SHAPE_CELLS:
+        if c.name == name:
+            return c
+    raise KeyError(f"unknown shape cell {name!r}")
+
+
+# =============================================================================
+# input stand-ins (meta tensors; no allocation) — the dry run's contract
+# =============================================================================
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell,
+                max_seq: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Meta-device stand-ins for every model input of the given cell, with
+    the reference's shapes and dtypes.
+
+    train:   {tokens, labels} (+ modality stubs)
+    prefill: {tokens} (+ modality stubs) — the step builds its own cache
+    decode:  {tokens (B,1), cache_pos (B,)} — the step closes over cache specs
+    """
+    b, s = cell.global_batch, cell.seq_len
+    out: Dict[str, torch.Tensor] = {}
+    if cell.kind == "train":
+        out["tokens"] = _sds((b, s), torch.int32)
+        out["labels"] = _sds((b, s), torch.int32)
+    elif cell.kind == "prefill":
+        out["tokens"] = _sds((b, s), torch.int32)
+    elif cell.kind == "decode":
+        out["tokens"] = _sds((b, 1), torch.int32)
+        out["cache_pos"] = _sds((b,), torch.int32)
+    else:
+        raise ValueError(cell.kind)
+
+    # modality frontends are stubs: precomputed embeddings arrive as inputs
+    if cfg.family == "vlm" and cell.kind != "decode":
+        out["vision_embeds"] = _sds((b, cfg.vision_prefix_len, cfg.d_model), cfg.adtype)
+    if cfg.is_encoder_decoder and cell.kind != "decode":
+        # stub log-mel frame embeddings; encoder length bounded by the cell seq
+        enc_len = min(cfg.encoder_len, s) if cell.kind == "prefill" else min(s, 4096)
+        out["frames"] = _sds((b, enc_len, cfg.d_model), cfg.adtype)
+    return out
+
+
+def dryrun_cells(arch: str) -> List[ShapeCell]:
+    """The shape cells that apply to an arch."""
+    cfg = get_config(arch)
+    return [c for c in SHAPE_CELLS if cell_applicable(cfg, c)[0]]
+
+
 def depth_pair(cfg: ModelConfig):
     """Two reduced depths at which the fully-unrolled module is compiled for
     the roofline measurement; per-step cost is affine in depth, so the full-
@@ -81,4 +137,4 @@ def at_depth(cfg: ModelConfig, depth: int) -> ModelConfig:
 
 
 __all__ = ["ASSIGNED_ARCHS", "list_archs", "get_config", "get_smoke_config",
-           "depth_pair", "at_depth"]
+           "get_cell", "input_specs", "dryrun_cells", "depth_pair", "at_depth"]

@@ -18,15 +18,25 @@ whose collectives (``Mesh.psum``, ``pmax``, ``all_gather``, ``all_to_all``,
 ``axis_index``) run over the named axes' process groups, and gathers the
 outputs back whole by their specs.
 
+A tensor may also be *stored* (``Stored``, the store of
+``distributed/sharding.py``): this rank's block of it and the spec that
+cut the block.  A region takes a stored argument whose spec is its
+``in_spec`` as it is, with no narrow of a whole tensor; code outside a
+region gathers a stored tensor whole where it uses it (``gather``), and a
+stored cache is opened whole and written back into the rank's block
+(``opened``).
+
 Gradients follow one convention inside a region: the gradient a rank holds
 for a value that is replicated over some axes is its share, and the true
 gradient is the sum of the shares over those axes.  So ``psum`` sums the
 incoming gradient (its transpose), ``all_gather`` reduce-scatters it, an
 output that leaves the region replicated over an axis hands its gradient
 to the rank at coordinate 0 of that axis alone, and an input's gradient is
-summed over every rank of the mesh as it leaves the region.  Every rank
-then holds the whole, true gradient of every tensor outside the regions,
-as a single rank would.
+summed over every rank of the mesh as it leaves the region (for a stored
+input, over the ranks that hold the same block).  Every rank then holds
+the whole, true gradient of every tensor outside the regions, as a single
+rank would, so a stored tensor gathered on use takes its block of that
+gradient.
 """
 from __future__ import annotations
 
@@ -363,18 +373,23 @@ def _pad_spec(spec, ndim: int) -> tuple:
 
 def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
     """The port of ``jax.shard_map`` (``check_vma=False``): a callable
-    that runs ``fn`` on this rank's blocks of its (whole) tensor arguments
-    and returns its outputs whole.  ``in_specs`` has one spec per argument;
-    ``out_specs`` is one spec or a tuple of them, like ``fn``'s result.
+    that runs ``fn`` on this rank's blocks of its tensor arguments (whole,
+    or stored with the argument's ``in_spec``) and returns its outputs
+    whole.  ``in_specs`` has one spec per argument; ``out_specs`` is one
+    spec or a tuple of them, like ``fn``'s result.
 
     An input that needs no gradient enters as a view of the caller's
-    tensor, so a body may write its block in place."""
+    tensor (of a stored one's block), so a body may write its block in
+    place."""
     single = isinstance(out_specs, P)
 
     def call(*args):
         world = mesh.group(mesh.axis_names)
         local = []
         for a, spec in zip(args, in_specs):
+            if isinstance(a, Stored):
+                local.append(_enter_stored(mesh, a, _pad_spec(spec, a.ndim)))
+                continue
             block = _block(mesh, a.shape, _pad_spec(spec, a.ndim))
             if a.requires_grad and torch.is_grad_enabled():
                 local.append(_Enter.apply(a, block, world))
@@ -396,6 +411,150 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
         return whole[0] if single else tuple(whole)
 
     return call
+
+
+# ----------------------------------------------------------------------------- stored tensors
+
+class Stored:
+    """One leaf of the store: this rank's block (``local``) of a tensor of
+    ``shape`` cut by ``spec`` on ``mesh``.  Indexing a leading dimension
+    the spec leaves whole (a stacked layer) gives that layer's stored
+    tensor, a view of the block."""
+
+    __slots__ = ("local", "spec", "shape", "mesh")
+
+    def __init__(self, local: torch.Tensor, spec, shape, mesh: Mesh):
+        self.local, self.spec, self.mesh = local, P(*_pad_spec(spec, len(shape))), mesh
+        self.shape = torch.Size(shape)
+
+    def __repr__(self) -> str:
+        return f"Stored({tuple(self.shape)}, {self.spec}, local {tuple(self.local.shape)})"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def __getitem__(self, i: int) -> "Stored":
+        if not isinstance(i, int) or self.spec[0] is not None:
+            raise TypeError(f"a stored tensor indexes only an unsplit leading dim, not {i!r} "
+                            f"under {self.spec}")
+        return Stored(self.local[i], self.spec[1:], self.shape[1:], self.mesh)
+
+    def with_local(self, local: torch.Tensor) -> "Stored":
+        """The same placement holding another block (an update's result)."""
+        return Stored(local, self.spec, self.shape, self.mesh)
+
+    def block(self) -> tuple:
+        """(dim, start, length) of the block in the whole tensor."""
+        return _block(self.mesh, self.shape, self.spec)
+
+    def split_axes(self) -> Tuple[str, ...]:
+        """The mesh axes the spec splits a dimension over, in mesh order."""
+        used = {a for e in self.spec for a in _as_axes(e)}
+        return tuple(a for a in self.mesh.axis_names if a in used)
+
+
+class _EnterStored(torch.autograd.Function):
+    """A stored block entering a region as it is; its gradient (a share)
+    is summed over the ranks that hold the same block: the axes the spec
+    leaves whole."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        if ctx.group is None:
+            return g, None
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def _enter_stored(mesh: Mesh, a: Stored, spec) -> torch.Tensor:
+    if tuple(a.spec) != tuple(spec):
+        raise ValueError(f"a stored tensor cut by {a.spec} enters a region that takes {P(*spec)}")
+    if not (a.local.requires_grad and torch.is_grad_enabled()):
+        return a.local
+    whole_over = tuple(n for n in mesh.axis_names if n not in a.split_axes())
+    return _EnterStored.apply(a.local, mesh.group(whole_over) if whole_over else None)
+
+
+class _Gather(torch.autograd.Function):
+    """A stored block gathered whole, outside any region; the whole
+    gradient there is the true one on every rank, so the block's gradient
+    is its part of it."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, spec, block):
+        ctx.block = block
+        return _whole(mesh, local, spec)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _narrow(g, ctx.block).contiguous(), None, None, None
+
+
+def gather(x):
+    """``x`` whole: a stored tensor gathered along every split dimension
+    (an all-gather per split, even over one rank), anything else as it is."""
+    if not isinstance(x, Stored):
+        return x
+    return _Gather.apply(x.local, x.mesh, x.spec, x.block())
+
+
+def _map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def gather_tree(tree, keep: Tuple[str, ...] = ()):
+    """A tree of dicts and lists with every stored leaf gathered whole,
+    except the top-level entries named in ``keep`` (left as they are)."""
+    if isinstance(tree, dict):
+        return {k: v if k in keep else _map_leaves(gather, v) for k, v in tree.items()}
+    return _map_leaves(gather, tree)
+
+
+def write_back(dst: Stored, whole: torch.Tensor) -> None:
+    """Copy this rank's block of ``whole`` into ``dst``'s block."""
+    part = _narrow(whole, dst.block())
+    if part.data_ptr() != dst.local.data_ptr() or part.stride() != dst.local.stride():
+        dst.local.copy_(part)
+
+
+@contextlib.contextmanager
+def opened(tree):
+    """A cache tree (dicts of tensors) with its stored leaves gathered
+    whole, for code outside a region to read and write in place; on exit
+    each rank's block of every stored leaf takes what was written."""
+    stored = []
+
+    def open_leaf(x):
+        if not isinstance(x, Stored):
+            return x
+        whole = gather(x)
+        stored.append((x, whole))
+        return whole
+
+    out = _map_leaves(open_leaf, tree)
+    yield out
+    for dst, whole in stored:
+        write_back(dst, whole)
 
 
 # ----------------------------------------------------------------------------- context

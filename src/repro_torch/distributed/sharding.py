@@ -14,15 +14,24 @@ Strategy (the reference's):
 Specs are the port's ``P``: a tuple with one entry per dimension, each
 None, an axis name or a tuple of axis names.  Leading stack dims (the
 scanned layers, a hybrid's double stack) are padded with None.  ``named``
-turns a spec tree into DTensor placements; the port does not store
-parameters split yet (ROADMAP.md, Queue 1), so the placements describe the
-layout a sharded store would take.
+turns a spec tree into DTensor placements.
+
+The store: ``place`` cuts a tree of whole tensors by its spec tree, so each
+rank keeps only its block of a leaf that a spec splits (a
+``context.Stored``, its spec travelling with it) and a leaf no spec splits
+stays whole; ``stored_zeros`` makes a zeroed stored tree (a cache) block by
+block; ``gather`` (``context.gather``) is the inverse of ``place`` for
+one leaf, and ``local_bytes`` what a rank holds.  The specs split a dimension only where
+it divides (``context.divides``), so every block of a rank is even.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.distributed.context import P, ShardCtx, batch_axis, divides
+import torch
+
+from repro_torch.distributed.context import (P, ShardCtx, Stored, _as_axes, _block,
+                                             _narrow, batch_axis, divides, gather)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeCell
 
@@ -283,3 +292,77 @@ def named(mesh, spec_tree) -> Any:
     if isinstance(spec_tree, (list, tuple)):
         return type(spec_tree)(named(mesh, v) for v in spec_tree)
     return spec_tree
+
+
+# =============================================================================
+# the store
+# =============================================================================
+
+def _zip_specs(fn, tree, specs):
+    """``fn(leaf, spec)`` over ``tree`` and its congruent spec tree (dicts,
+    lists and NamedTuples; a ``P`` is a leaf of the spec tree)."""
+    if isinstance(specs, P):
+        return fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _zip_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_specs(fn, v, s) for v, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_specs(fn, v, s) for v, s in zip(tree, specs))
+    raise TypeError(f"no spec for a leaf {type(tree).__name__}")
+
+
+def _splits(spec) -> bool:
+    return any(_as_axes(e) for e in spec)
+
+
+def _place_leaf(mesh, x: torch.Tensor, spec: P):
+    spec = P(*(tuple(spec) + (None,) * (x.ndim - len(spec))))
+    if not _splits(spec):
+        return x.contiguous()
+    block = _block(mesh, x.shape, spec)
+    if all(size == x.shape[d] for d, _, size in block):     # axes of one rank
+        return Stored(x.contiguous(), spec, x.shape, mesh)
+    local = _narrow(x, block).clone(memory_format=torch.contiguous_format)
+    return Stored(local, spec, x.shape, mesh)
+
+
+def place(tree, specs, mesh):
+    """The store of ``tree`` on ``mesh``: every leaf a spec splits becomes
+    this rank's block (``Stored``: a copy of its own, or the tensor itself
+    where the block is all of it), every other leaf stays the whole tensor
+    (made contiguous: an expanded view gets storage of its size).  Raises
+    where a split dimension does not divide evenly."""
+    return _zip_specs(lambda x, spec: _place_leaf(mesh, x, spec), tree, specs)
+
+
+def stored_zeros(shapes, specs, mesh, dtype, device):
+    """A zeroed tree of ``shapes`` (dicts and lists with shape tuples as
+    leaves, ``models.model.cache_shapes``) stored by ``specs``: each rank
+    allocates its block only."""
+    def leaf(shape, spec):
+        spec = P(*(tuple(spec) + (None,) * (len(shape) - len(spec))))
+        local = list(shape)
+        for dim, _, size in _block(mesh, shape, spec):
+            local[dim] = size
+        zeros = torch.zeros(local, dtype=dtype, device=device)
+        return Stored(zeros, spec, shape, mesh) if _splits(spec) else zeros
+
+    return _zip_specs(leaf, shapes, specs)
+
+
+def local_of(x) -> torch.Tensor:
+    """The tensor a rank holds for a leaf: its block, or the whole."""
+    return x.local if isinstance(x, Stored) else x
+
+
+def local_bytes(tree) -> int:
+    """The bytes this rank holds for ``tree``'s tensor leaves."""
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in map(local_of, leaves(tree))
+               if isinstance(t, torch.Tensor))
+
+
+def is_stored(tree) -> bool:
+    from repro_torch.tree import leaves
+    return any(isinstance(x, Stored) for x in leaves(tree))

@@ -21,6 +21,7 @@ from typing import List, Tuple
 from repro_torch.configs import get_smoke_config, list_archs
 from repro_torch.core.types import GimbalConfig
 from repro_torch.distributed.fault import HealthConfig, HealthMonitor
+from repro_torch.launch.mesh import refuse_fake_group
 from repro_torch.models import model as M
 from repro_torch.serving.cluster import Cluster
 from repro_torch.serving.engine import Engine
@@ -73,6 +74,7 @@ def serve(arch: str = "qwen3-30b-a3b", variant: str = "gimbal", engines: int = 2
         lines.append(line)
         print(line)
 
+    refuse_fake_group("serve")
     gcfg = GimbalConfig(tau=25, theta_load=64)
     cluster = build_cluster(arch, variant, engines, gcfg, device=device)
     monitor = HealthMonitor(list(cluster.engines), HealthConfig())

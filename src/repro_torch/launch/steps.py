@@ -9,9 +9,14 @@ expert-parallel path and slot decodes the sequence-sharded ones, at any
 world size, 1 included; the decode step passes ``ctx.mla_absorb``.  With
 ``ctx=None`` the step runs the plain single-device path and the specs are
 None.  The train step differentiates with autograd; training reaches
-none of the port's kernels.  The dry-run half (``train_inputs``,
-``abstract_cache``, ``abstract_train_state``) waits for the last slice of
-the port (ROADMAP.md, Queue 1 item 16e).
+none of the port's kernels.
+
+A step takes the store (``distributed/sharding.py``) as well as whole
+trees: given stored params, the prefill step builds a stored cache, every
+step gathers its stored inputs whole where the model takes them, and the
+outputs come back stored by the out specs (what a rank keeps of them).
+``train_inputs``, ``abstract_cache`` and ``abstract_train_state`` give a
+cell's inputs and state on the meta device (the dry run's).
 """
 from __future__ import annotations
 
@@ -20,11 +25,14 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.distributed.context import P, ShardCtx, batch_axis, shard_ctx
-from repro_torch.distributed.sharding import cache_specs, param_specs
+from repro_torch.distributed.context import (P, ShardCtx, Stored, batch_axis, gather,
+                                             shard_ctx)
+from repro_torch.distributed.sharding import (cache_specs, input_shardings, is_stored,
+                                              param_specs, place, stored_zeros)
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig, ShapeCell
-from repro_torch.training.optimizer import AdamWConfig, AdamWState, adamw_update
+from repro_torch.training.optimizer import (AdamWConfig, AdamWState, abstract_adamw,
+                                            adamw_update)
 from repro_torch.tree import leaves, unflatten
 
 
@@ -42,6 +50,10 @@ def _under(ctx: Optional[ShardCtx]):
     """The context to run a step's body in: ``ctx``'s, or whatever is
     active when there is none."""
     return shard_ctx(ctx) if ctx is not None else contextlib.nullcontext()
+
+
+def _whole_batch(batch: dict) -> dict:
+    return {k: gather(v) for k, v in batch.items()}
 
 
 def placements_input(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
@@ -109,7 +121,7 @@ def make_train_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
 
     def train_step(params, opt_state, batch):
         with _under(ctx):
-            loss, grads = value_and_grad(loss_fn, params, batch)
+            loss, grads = value_and_grad(loss_fn, params, _whole_batch(batch))
             params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
             return params, opt_state, {"loss": loss, **om}
 
@@ -124,16 +136,24 @@ def make_train_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
 def value_and_grad(loss_fn, params: Any, *args):
     """(loss, grads): ``loss_fn(params, *args)`` and its gradient with
     respect to every floating leaf of ``params``, as a tree like it (a leaf
-    the loss does not reach gets zeros, as in JAX)."""
-    flat = [p.detach().requires_grad_(p.is_floating_point()) for p in leaves(params)]
+    the loss does not reach gets zeros, as in JAX).  A stored leaf's
+    gradient is stored like it: the gradient of its block."""
+    def local(p):
+        return p.local if isinstance(p, Stored) else p
+
+    def like(p, t):
+        return p.with_local(t) if isinstance(p, Stored) else t
+
+    orig = leaves(params)
+    flat = [local(p).detach().requires_grad_(local(p).is_floating_point()) for p in orig]
     with torch.enable_grad():
-        loss = loss_fn(unflatten(params, flat), *args)
+        loss = loss_fn(unflatten(params, [like(p, t) for p, t in zip(orig, flat)]), *args)
         wrt = [p for p in flat if p.requires_grad]
         got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
     grads = []
-    for p in flat:
-        g = next(got) if p.requires_grad else None
-        grads.append(torch.zeros_like(p) if g is None else g)
+    for p, t in zip(orig, flat):
+        g = next(got) if t.requires_grad else None
+        grads.append(like(p, torch.zeros_like(t) if g is None else g))
     return loss.detach(), unflatten(params, grads)
 
 
@@ -161,18 +181,25 @@ def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
     token (B,) int32, the cache it filled)."""
     b, total_seq = cell.global_batch, _total_seq(cfg, cell)
 
+    cspecs, out_specs = _serve_specs(cfg, ctx, b, total_seq)
+
     @torch.no_grad()
     def prefill_step(params, batch):
+        stored = ctx is not None and is_stored(params)
         with _under(ctx):
+            batch = _whole_batch(batch)
             tokens = batch["tokens"]
-            cache = M.init_cache(cfg, b, total_seq, device=tokens.device)
+            if stored:
+                cache = stored_zeros(M.cache_shapes(cfg, b, total_seq), cspecs, ctx.mesh,
+                                     cfg.adtype, tokens.device)
+            else:
+                cache = M.init_cache(cfg, b, total_seq, device=tokens.device)
             kw = {k: batch[k] for k in ("vision_embeds", "frames") if k in batch}
             logits, new_cache, _ = M.prefill(params, cfg, tokens, cache,
                                              placements=batch.get("placements"), **kw)
             first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-            return first, new_cache
+            return (place(first, out_specs[0], ctx.mesh) if stored else first), new_cache
 
-    cspecs, out_specs = _serve_specs(cfg, ctx, b, total_seq)
     return prefill_step, cspecs, out_specs
 
 
@@ -184,18 +211,50 @@ def make_decode_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
     (B,) int32, the cache, written in place); MLA decodes absorbed when
     ``ctx.mla_absorb``."""
     absorb = ctx.mla_absorb if ctx is not None else False
+    cspecs, out_specs = (_serve_specs(cfg, ctx, cell.global_batch, _total_seq(cfg, cell))
+                         if cell is not None else (None, (None, None)))
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
+        stored = ctx is not None and is_stored(params)
         with _under(ctx):
+            batch = _whole_batch(batch)
             logits, new_cache, _ = M.decode_step(params, cfg, batch["tokens"], cache,
                                                  batch["cache_pos"],
                                                  placements=batch.get("placements"),
                                                  mla_absorb=absorb)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if stored:
+                nxt = place(nxt, P(_batch_ax(ctx, nxt.shape[0])), ctx.mesh)
             return nxt, new_cache
 
-    if cell is None:
-        return serve_step, None, (None, None)
-    cspecs, out_specs = _serve_specs(cfg, ctx, cell.global_batch, _total_seq(cfg, cell))
     return serve_step, cspecs, out_specs
+
+
+# =============================================================================
+# the dry run's stand-ins
+# =============================================================================
+
+def train_inputs(cfg: ModelConfig, ctx: ShardCtx, cell: ShapeCell, specs: dict):
+    """(batch, batch specs) of a cell: ``specs`` (``configs.input_specs``)
+    plus, for a MoE, the identity placements (replicated)."""
+    batch = dict(specs)
+    shardings = input_shardings(cfg, ctx, cell, specs)
+    pl = placements_input(cfg, device=next(iter(specs.values())).device)
+    if pl is not None:
+        batch["placements"] = pl
+        shardings["placements"] = P(None, None)
+    return batch, shardings
+
+
+def abstract_cache(cfg: ModelConfig, cell: ShapeCell) -> Any:
+    """The decode cache of a cell on the meta device."""
+    return M.init_cache(cfg, cell.global_batch, _total_seq(cfg, cell), device="meta")
+
+
+def abstract_train_state(cfg: ModelConfig, opt_cfg: Optional[AdamWConfig] = None):
+    """(params, AdamW state) on the meta device, with the reference's
+    default optimizer (bf16 moments)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+    aparams = M.abstract_params(cfg)
+    return aparams, abstract_adamw(aparams, opt_cfg)

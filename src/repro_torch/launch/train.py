@@ -17,8 +17,11 @@ As in the reference, every run goes through a mesh and its shard context
 defaults to (1, n), n the ranks of the started process group (1 when none
 is started, as on one card), so a MoE trains through the expert-parallel
 path.  A larger mesh runs one rank a process over ``torch.distributed``
-(torchrun, or a group the caller started); every rank computes the same
-losses and ends with the same state, and only rank 0 writes checkpoints.
+(torchrun, or a group the caller started).  The params, the AdamW moments
+and each batch live on the store (``distributed/sharding.py``): a rank
+holds its block of every leaf its spec splits.  Every rank computes the
+same losses; a checkpoint gathers each leaf whole to rank 0, which writes
+it, and a resume keeps each rank's block.
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from repro_torch import device as devlib
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.placement import perm_to_slot_map, static_placement
 from repro_torch.launch import steps as S
-from repro_torch.launch.mesh import make_mesh
+from repro_torch.distributed.sharding import input_shardings, place
+from repro_torch.launch.mesh import make_mesh, refuse_fake_group
 from repro_torch.models import model as M
 from repro_torch.models.config import ShapeCell
 from repro_torch.training.checkpoint import latest_step, restore_checkpoint, save_checkpoint
@@ -45,6 +49,7 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``'s
     newest checkpoint) and return the losses of the steps this call ran."""
     import torch.distributed as dist
+    refuse_fake_group("train")
     dev = devlib.resolve(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cell = ShapeCell("train_custom", seq, batch, "train")
@@ -59,8 +64,8 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
     ctx = S.make_ctx(mesh)
     writer = mesh.rank == 0
 
-    fn, _, _ = S.make_train_step(cfg, ctx, cell, opt_cfg, remat=False)
-    params = M.init_params(cfg, seed=seed, device=dev)
+    fn, (pspec, _), _ = S.make_train_step(cfg, ctx, cell, opt_cfg, remat=False)
+    params = place(M.init_params(cfg, seed=seed, device=dev), pspec, mesh)
     opt_state = init_adamw(params, opt_cfg)
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
@@ -84,16 +89,17 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
         if cfg.is_encoder_decoder:
             batch_dev["frames"] = torch.zeros(
                 (batch, min(cfg.encoder_len, seq), cfg.d_model), dtype=cfg.adtype, device=dev)
+        batch_dev = place(batch_dev, input_shardings(cfg, ctx, cell, batch_dev), mesh)
         params, opt_state, metrics = fn(params, opt_state, batch_dev)
         losses.append(float(metrics["loss"]))
         if step % log_every == 0 or step == steps - 1:
             print(f"[train] step {step} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time()-t0):.1f}s)")
-        if writer and ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
-            save_checkpoint(ckpt_dir, step + 1, (params, opt_state))
-    if writer and ckpt_dir:
-        save_checkpoint(ckpt_dir, steps, (params, opt_state))
+        if ckpt_dir and ckpt_every and (step + 1) % ckpt_every == 0:
+            save_checkpoint(ckpt_dir, step + 1, (params, opt_state), writer=writer)
+    if ckpt_dir:
+        save_checkpoint(ckpt_dir, steps, (params, opt_state), writer=writer)
     return losses
 
 

@@ -25,10 +25,12 @@ Under a shard context (``distributed/context.py``) whose model axis
 divides the cache length, a slot decode (GQA and MLA) takes the reference's
 sequence-sharded flash-decode: each rank of the model axis attends over
 its chunk of the cache and the partial softmax statistics are combined
-with ``pmax`` / ``psum``.  The cache stays whole on every rank: the region
-writes the new row into this rank's chunk (the reference's guarded write),
-then every rank writes it into its whole copy, which is what gathering the
-chunks back would give, without moving the cache.  The reference's
+with ``pmax`` / ``psum``.  The region writes the new row into this rank's
+chunk only (the reference's guarded write).  A stored cache (the store of
+``distributed/sharding.py``) holds just that chunk, so nothing more is
+written; a whole cache is written on every rank as well, which is what
+gathering the chunks back would give.  Any other decode opens a stored
+cache whole and writes each rank's block back.  The reference's
 sharding constraints on q and the expanded k/v move no value and are left
 out; ``distributed/sharding.py`` keeps their choice of layout.
 """
@@ -38,8 +40,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.context import (P, batch_axis, current_ctx, divides,
-                                             shard_map)
+from repro_torch.distributed.context import (P, Stored, batch_axis, current_ctx, divides,
+                                             opened, shard_map)
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, normal, rms_norm, softcap
@@ -194,20 +196,20 @@ def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     ctx = current_ctx()
     if ctx is not None and divides(cache["k"].shape[1], ctx.tp):
         out = _gqa_decode_seqsharded(cfg, q, k_new, v_new, cache, cache_pos, local, ctx)
-        cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+        if not isinstance(cache["k"], Stored):
+            cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
 
-    cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
-
-    s_max = cache["k"].shape[1]
-    j = torch.arange(s_max, device=x.device)[None, :]
-    mask = j <= pos[:, None]
-    if local and cfg.sliding_window > 0:
-        mask &= j > (pos[:, None] - cfg.sliding_window)
-    out = _sdpa(cfg, q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                mask[:, None, :])
+    with opened(cache) as c:
+        c["k"][rows, pos] = k_new[:, 0].to(c["k"].dtype)
+        c["v"][rows, pos] = v_new[:, 0].to(c["v"].dtype)
+        s_max = c["k"].shape[1]
+        j = torch.arange(s_max, device=x.device)[None, :]
+        mask = j <= pos[:, None]
+        if local and cfg.sliding_window > 0:
+            mask &= j > (pos[:, None] - cfg.sliding_window)
+        out = _sdpa(cfg, q, c["k"].to(q.dtype), c["v"].to(q.dtype), mask[:, None, :])
     out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
     return out, cache
 
@@ -460,18 +462,20 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     if ctx is not None and divides(cache["ckv"].shape[1], ctx.tp):
         out = _mla_decode_seqsharded(cfg, params, q_nope, q_rope, ckv_new, krope_new,
                                      cache, cache_pos, ctx, absorb)
-        cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
-        cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
+        if not isinstance(cache["ckv"], Stored):
+            cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
+            cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
         return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
 
-    cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
+    with opened(cache) as c:
+        c["ckv"][rows, pos] = ckv_new[:, 0].to(c["ckv"].dtype)
+        c["krope"][rows, pos] = krope_new[:, 0].to(c["krope"].dtype)
+        ckv_c = c["ckv"].to(x.dtype)
+        krope_c = c["krope"].to(x.dtype)
 
-    s_max = cache["ckv"].shape[1]
+    s_max = ckv_c.shape[1]
     masked = (torch.arange(s_max, device=x.device)[None, :] > pos[:, None])[:, None, None]
     scale = (dn + cfg.qk_rope_head_dim) ** -0.5
-    ckv_c = cache["ckv"].to(x.dtype)
-    krope_c = cache["krope"].to(x.dtype)
     if absorb:
         wkb_k = params["wkv_b"][..., :dn]                         # (r, h, dn)
         wkb_v = params["wkv_b"][..., dn:]                         # (r, h, dv)

@@ -8,12 +8,20 @@ leading L axis (models/model.py).  Under a shard context whose model axis
 divides the expert count, a MoE layer takes the expert-parallel path
 (``models/moe_sharded.py``), which ignores ``dispatch_mode``, as the
 reference's does.
+
+A block's stored weights (``distributed/sharding.py``'s store) are gathered
+whole when the block runs and freed after it, except the experts a
+sharded MoE region takes as they are stored; a full-sequence or mamba
+block opens its stored cache whole and writes each rank's block back
+(``context.opened``); an attention decode takes its stored cache itself.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.distributed.context import current_ctx
+from repro_torch.distributed.context import current_ctx, gather_tree, opened
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import moe as moe_lib
@@ -27,8 +35,21 @@ def _moe(p, cfg: ModelConfig, h, placement, dispatch_mode: str, stats: bool):
     model axis divides the experts, else the single-device MoE."""
     ctx = current_ctx()
     if ctx is not None and cfg.num_experts % ctx.tp == 0:
-        return moe_apply_sharded(p, cfg, h, placement, ctx, stats)
-    return moe_lib.moe_apply(p, cfg, h, placement, dispatch_mode, stats)
+        return moe_apply_sharded(gather_tree(p, keep=_EXPERTS), cfg, h, placement, ctx,
+                                 stats)
+    return moe_lib.moe_apply(gather_tree(p), cfg, h, placement, dispatch_mode, stats)
+
+
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _weights(p: dict) -> dict:
+    """The block's weights whole; the MoE's stay as stored for ``_moe``."""
+    return gather_tree(p, keep=("moe",))
+
+
+def _opened(cache):
+    return opened(cache) if cache is not None else contextlib.nullcontext()
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, is_moe_layer: bool,
@@ -76,16 +97,19 @@ def _ffn_half(p: dict, cfg: ModelConfig, x, is_moe_layer: bool, placement,
 
 def attn_block_full(p: dict, cfg: ModelConfig, x, positions, is_local: bool, cache,
                     is_moe_layer: bool, placement, dispatch_mode: str, stats: bool):
+    p = _weights(p)
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
-    a, new_cache = attn.attention_full(p["attn"], cfg, h, positions, is_local, cache)
+    with _opened(cache) as c:
+        a, _ = attn.attention_full(p["attn"], cfg, h, positions, is_local, c)
     x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
-    return x, new_cache, aux
+    return x, cache, aux
 
 
 def attn_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos,
                       is_local: bool, is_moe_layer: bool, placement,
                       dispatch_mode: str, stats: bool, mla_absorb: bool = False):
     """One decode step of a block against one layer's slot cache."""
+    p = _weights(p)
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
     a, new_cache = attn.attention_decode(p["attn"], cfg, h, cache, cache_pos, is_local,
                                          mla_absorb=mla_absorb)
@@ -99,6 +123,7 @@ def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
                             use_kernel: bool = False):
     """One decode step of a block against one layer's paged KV pool (GQA
     only: the paged layout rejects the other families up front)."""
+    p = _weights(p)
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
     a, new_cache = attn.gqa_decode_paged(p["attn"], cfg, h, cache, block_tables,
                                          lengths, is_local, use_kernel)
@@ -109,30 +134,37 @@ def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
 # --- mamba block ---------------------------------------------------------------------
 
 def mamba_block_full(p: dict, cfg: ModelConfig, x, cache):
+    p = _weights(p)
     h = rms_norm(x, p["mamba_norm"]["scale"], cfg.norm_eps)
-    y, cache = m2.mamba2_full(p["mamba"], cfg, h, cache)
+    with _opened(cache) as c:
+        y, _ = m2.mamba2_full(p["mamba"], cfg, h, c)
     return x + y, cache
 
 
 def mamba_block_decode(p: dict, cfg: ModelConfig, x, cache):
+    p = _weights(p)
     h = rms_norm(x, p["mamba_norm"]["scale"], cfg.norm_eps)
-    y, cache = m2.mamba2_decode(p["mamba"], cfg, h, cache)
+    with _opened(cache) as c:
+        y, _ = m2.mamba2_decode(p["mamba"], cfg, h, c)
     return x + y, cache
 
 
 # --- whisper decoder block ----------------------------------------------------------
 
 def cross_block_full(p: dict, cfg: ModelConfig, x, positions, memory, cache):
+    p = _weights(p)
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
-    a, new_cache = attn.gqa_full(p["attn"], cfg, h, positions, False, cache)
+    with _opened(cache) as c:
+        a, _ = attn.gqa_full(p["attn"], cfg, h, positions, False, c)
     x = x + a
     h = rms_norm(x, p["cross_norm"]["scale"], cfg.norm_eps)
     x = x + attn.cross_attention(p["cross"], cfg, h, memory)
     h = rms_norm(x, p["ffn_norm"]["scale"], cfg.norm_eps)
-    return x + ffn_apply(p["ffn"], h), new_cache
+    return x + ffn_apply(p["ffn"], h), cache
 
 
 def cross_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos, memory):
+    p = _weights(p)
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
     a, new_cache = attn.gqa_decode(p["attn"], cfg, h, cache, cache_pos, False)
     x = x + a
@@ -145,6 +177,7 @@ def cross_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos, memory):
 # --- whisper encoder block (non-causal, no rope) ---------------------------------------
 
 def encoder_block_full(p: dict, cfg: ModelConfig, x):
+    p = _weights(p)
     h = rms_norm(x, p["attn_norm"]["scale"], cfg.norm_eps)
     q = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["attn"]["wk"])

@@ -3,9 +3,8 @@
 The same frozen dataclass and field names as the reference, so one config
 file reads the same in both packages; ``adtype`` returns a torch dtype.  The
 parameter counts the simulator's cost model reads are the reference's.  The
-shape cells are the reference's table (the train step takes a cell);
-``cell_applicable`` belongs to the dry-run and waits for the dry-run slice
-(ROADMAP.md, Queue 1 item 16e).
+shape cells are the reference's table, and ``cell_applicable`` says which
+of them apply to an arch (the dry run's rule).
 """
 from __future__ import annotations
 
@@ -231,3 +230,14 @@ SHAPE_CELLS: Tuple[ShapeCell, ...] = (
     ShapeCell("decode_32k", 32_768, 128, "decode"),
     ShapeCell("long_500k", 524_288, 1, "decode"),
 )
+
+
+# Archs for which long_500k is runnable (sub-quadratic sequence handling).
+LONG_CONTEXT_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+
+
+def cell_applicable(cfg: ModelConfig, cell: ShapeCell) -> Tuple[bool, str]:
+    """Whether a shape cell applies to an arch, with the reason if not."""
+    if cell.name == "long_500k" and cfg.name not in LONG_CONTEXT_ARCHS:
+        return False, "full-attention KV at 524288 is quadratic-family; skipped per spec"
+    return True, ""

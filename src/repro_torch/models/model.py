@@ -42,6 +42,10 @@ to keep a runtime flag out of its scan, and the port's loop already gives
 each layer its own static flag, so its stack is the paired stack.  The
 reference's sharding constraints on the residual stream move no value and
 are left out; ``distributed/sharding.py`` keeps their choice of layout.
+Stored weights and caches (``distributed/sharding.py``'s store) are
+gathered whole where they are used: a layer's in its block
+(``models/blocks.py``), the embedding, the final norm and whisper's
+encoder norm and memory here.
 """
 from __future__ import annotations
 
@@ -53,7 +57,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as devlib
-from repro_torch.distributed.context import current_ctx, shard_ctx
+from repro_torch.distributed.context import (Stored, current_ctx, gather, gather_tree,
+                                             shard_ctx, write_back)
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.config import ModelConfig
@@ -242,8 +247,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
     per-layer caches; whisper adds the encoder "memory" (B, enc_len, d); an
     SSM keeps {"layers": {"ssm": (L,B,H,P,N), "conv": (L,B,K-1,CC)}} and a
     hybrid {"super_attn", "super_mamba", "epi"} (see the module docstring).
-    The SSM state is stored in ``dtype`` (``cfg.adtype`` by default)."""
-    dev = devlib.resolve(device)
+    The SSM state is stored in ``dtype`` (``cfg.adtype`` by default); on
+    ``device="meta"`` the tree holds shapes and dtypes only."""
+    dev = devlib.resolve(device, meta_ok=True)
     dt = dtype or cfg.adtype
     return _map_shapes(lambda s: torch.zeros(s, dtype=dt, device=dev),
                        cache_shapes(cfg, batch, max_seq))
@@ -395,10 +401,14 @@ def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, bloc
 
 
 def _head(params, cfg: ModelConfig, x):
-    x = rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
-    w = (params["embed"]["embedding"] if cfg.tie_embeddings
-         else params["embed"]["unembedding"])
+    x = rms_norm(x, gather(params["final_norm"]["scale"]), cfg.norm_eps)
+    w = gather(params["embed"]["embedding"] if cfg.tie_embeddings
+               else params["embed"]["unembedding"])
     return unembed_apply({"unembedding": w}, x, cfg.final_logit_softcap)
+
+
+def _embed(params, tokens):
+    return embed_apply(gather_tree(params["embed"]), tokens)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -411,13 +421,13 @@ def _forward_encdec(params, cfg: ModelConfig, tokens, frames, cache, cache_pos,
     the decoder with cross-attention over its memory.  Decode reads the
     memory from the cache; prefill with a cache stores it there."""
     if decode:
-        memory = cache["memory"]
+        memory = gather(cache["memory"])
     else:
         x = frames.to(cfg.adtype)
         for i in range(cfg.num_encoder_layers):
             x = B.encoder_block_full(_layer(params["enc_blocks"], i), cfg, x)
-        memory = rms_norm(x, params["enc_final_norm"]["scale"], cfg.norm_eps)
-    x = embed_apply(params["embed"], tokens)
+        memory = rms_norm(x, gather(params["enc_final_norm"]["scale"]), cfg.norm_eps)
+    x = _embed(params, tokens)
     b, s, _ = x.shape
     positions = None if decode else _positions(b, s, x.device)
     layers = cache["layers"] if cache is not None else None
@@ -429,7 +439,10 @@ def _forward_encdec(params, cfg: ModelConfig, tokens, frames, cache, cache_pos,
         else:
             x, _ = _unit(cfg, B.cross_block_full, p, cfg, x, positions, memory, c)
     if cache is not None and not decode:
-        cache["memory"] = memory
+        if isinstance(cache["memory"], Stored):
+            write_back(cache["memory"], memory)
+        else:
+            cache["memory"] = memory
     return _head(params, cfg, x), cache, {}
 
 
@@ -444,7 +457,7 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
     ``frames`` (B, enc_len, d).  Returns (logits (B,P+S,V) f32, cache, aux)."""
     if cfg.is_encoder_decoder:
         return _forward_encdec(params, cfg, tokens, frames, cache, None, False)
-    x = embed_apply(params["embed"], tokens)
+    x = _embed(params, tokens)
     if cfg.family == "vlm" and vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
     b, s, _ = x.shape
@@ -489,7 +502,7 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_pos, *,
         logits, cache, aux = _forward_encdec(params, cfg, token, None, cache,
                                              cache_pos, True)
         return logits[:, -1], cache, aux
-    x = embed_apply(params["embed"], token)
+    x = _embed(params, token)
     if cfg.is_ssm or cfg.is_hybrid:
         for p, c, is_attn in _ssm_layers(params, cfg, cache):
             if is_attn:
@@ -518,7 +531,7 @@ def decode_step_paged(params, cfg: ModelConfig, token, pages, block_tables,
     int32; lengths: (B,) tokens resident per row.  Returns (logits (B,V),
     pages, aux)."""
     check_paged(cfg)
-    x = embed_apply(params["embed"], token)
+    x = _embed(params, token)
 
     def block(p, x, c, local, is_moe, plc, st):
         return B.attn_block_decode_paged(p, cfg, x, c, block_tables, lengths, local,

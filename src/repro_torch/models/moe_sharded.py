@@ -5,8 +5,10 @@ Layout (the reference's): experts split over the "model" mesh axis (EP),
 the expert FFN hidden dim additionally FSDP-split over "data"; activations
 split over the batch ("pod", "data") axes and replicated over "model" on
 entry.  The region runs through ``distributed.context.shard_map``: each
-rank gets its block of the tokens and of the expert weights, and the
-body's collectives run over the mesh's process groups.
+rank gets its block of the tokens and of the expert weights (a stored
+weight's block as the store holds it, so the FSDP gather over "data"
+starts from the rank's shard), and the body's collectives run over the
+mesh's process groups.
 
 Bodies:
   * "gather": activations are replicated over the model axis, so every EP

@@ -14,6 +14,12 @@ bfloat16 without ``ml_dtypes``, which the port does not import).  A
 checkpoint is written into ``step_<N>.tmp`` and renamed into place with
 its manifest written last, so a crash mid-save never leaves a manifest
 that points at missing leaves; only directories with a manifest count.
+
+A state on the store (``distributed/sharding.py``) saves as the whole
+state: every rank calls ``save_checkpoint``, each stored leaf is gathered
+whole, one leaf at a time, and only the ``writer`` writes it; a restore
+into a stored ``like`` keeps each rank's block of every leaf.  So the files
+do not depend on the mesh, and either package reads them.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.distributed.context import Stored, _narrow, gather
 from repro_torch.tree import _is_namedtuple, flatten_with_paths, leaves, unflatten
 
 
@@ -58,20 +65,28 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
 
 
 def save_checkpoint(directory: str | Path, step: int, state: Any,
-                    keep: int = 3) -> Path:
+                    keep: int = 3, writer: bool = True) -> Optional[Path]:
+    """Write ``state`` as step ``step``; keep the newest ``keep``.  Every
+    rank of a stored state calls it (the gathers are collectives); only
+    the ``writer`` touches the disk and gets the path back."""
     directory = Path(directory)
     out = directory / f"step_{step:08d}"
+    flat = flatten_with_paths(state)
+    if not writer:
+        for _, leaf in flat:
+            if isinstance(leaf, Stored):
+                gather(leaf)
+        return None
     directory.mkdir(parents=True, exist_ok=True)
     work = Path(str(out) + ".tmp")
     if work.exists():
         shutil.rmtree(work)
     work.mkdir(parents=True)
 
-    flat = flatten_with_paths(state)
     manifest = {"step": int(step), "num_leaves": len(flat),
                 "treedef": _describe(state), "leaves": []}
     for i, (name, leaf) in enumerate(flat):
-        arr, logical_dtype = _to_numpy(leaf)
+        arr, logical_dtype = _to_numpy(gather(leaf) if isinstance(leaf, Stored) else leaf)
         fname = f"leaf_{i:05d}.npy"
         np.save(work / fname, arr)
         manifest["leaves"].append({
@@ -111,9 +126,10 @@ def _from_numpy(arr: np.ndarray, logical_dtype: str) -> torch.Tensor:
 
 def restore_checkpoint(directory: str | Path, like: Any,
                        step: Optional[int] = None) -> Tuple[int, Any]:
-    """Restore into the structure of ``like`` (a tree of tensors): each leaf
-    lands on its ``like`` leaf's device and dtype.  Returns (step, state).
-    Raises on a leaf count or a leaf shape that differs from ``like``'s."""
+    """Restore into the structure of ``like`` (a tree of tensors, whole or
+    stored): each leaf lands on its ``like`` leaf's device and dtype, a
+    stored one as this rank's block.  Returns (step, state).  Raises on a
+    leaf count or a leaf shape that differs from ``like``'s."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -130,5 +146,10 @@ def restore_checkpoint(directory: str | Path, like: Any,
         arr = np.load(d / rec["file"])
         if tuple(arr.shape) != tuple(want.shape):
             raise ValueError(f"leaf {rec['path']}: shape {arr.shape} != {tuple(want.shape)}")
-        out.append(_from_numpy(arr, rec["dtype"]).to(device=want.device, dtype=want.dtype))
+        t = _from_numpy(arr, rec["dtype"])
+        if isinstance(want, Stored):
+            part = _narrow(t, want.block()).to(device=want.device, dtype=want.dtype)
+            out.append(want.with_local(part.contiguous()))
+        else:
+            out.append(t.to(device=want.device, dtype=want.dtype))
     return step, unflatten(like, out)

@@ -8,10 +8,14 @@ gradients are scaled in bf16), ``step + 1`` and the bias corrections in
 f32, weight decay on matrices only (``ndim >= 2``), the new param cast
 back to its dtype and the moments to ``moment_dtype``.  Leaves are walked
 in the reference's flatten order (``repro_torch.tree``), which fixes
-``global_norm``'s summation order.  Nothing is updated in place: as the
+``global_norm``'s summation order.  On the store (``distributed/
+sharding.py``) every leaf is updated on the rank's block, the moments
+stored like their params, and ``global_norm`` sums each stored leaf's
+squares over its block, then ``psum``s the sum over the axes the leaf is
+split on (only those, so each element counts once).  Nothing is updated in place: as the
 reference returns new arrays, ``adamw_update`` returns new tensors.
-``abstract_adamw`` (the dry-run's shapes) waits for the dry-run slice
-(ROADMAP.md, Queue 1 item 16e).
+``abstract_adamw`` gives the state's shapes on the meta device (the dry
+run's).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.context import Stored
 from repro_torch.models.config import _DTYPES
 from repro_torch.tree import leaves, map_tree, unflatten
 
@@ -45,12 +50,25 @@ class AdamWState(NamedTuple):
     v: Any
 
 
+def _on_block(fn, p):
+    """``fn`` of a leaf's tensor: a stored leaf's block, stored alike."""
+    return p.with_local(fn(p.local)) if isinstance(p, Stored) else fn(p)
+
+
 def init_adamw(params: Any, cfg: AdamWConfig) -> AdamWState:
     dt = _DTYPES[cfg.moment_dtype]
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: _on_block(lambda t: torch.zeros(t.shape, dtype=dt, device=t.device), p)
     dev = leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
                       m=map_tree(zeros, params), v=map_tree(zeros, params))
+
+
+def abstract_adamw(params_abstract: Any, cfg: AdamWConfig) -> AdamWState:
+    """The state of ``init_adamw`` on the meta device (the dry run's)."""
+    dt = _DTYPES[cfg.moment_dtype]
+    meta = lambda p: torch.empty(p.shape, dtype=dt, device="meta")
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      m=map_tree(meta, params_abstract), v=map_tree(meta, params_abstract))
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -64,10 +82,16 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
+def _sum_squares(x) -> torch.Tensor:
+    if not isinstance(x, Stored):
+        return torch.sum(torch.square(x.float()))
+    return x.mesh.psum(torch.sum(torch.square(x.local.float())), x.split_axes())
+
+
 def global_norm(tree: Any) -> torch.Tensor:
     """sqrt of the Python sum of per-leaf f32 sums of squares, in flatten
-    order."""
-    sq = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
+    order (a stored leaf's summed over the ranks of its blocks)."""
+    sq = sum(_sum_squares(x) for x in leaves(tree))
     return torch.sqrt(sq)
 
 
@@ -121,7 +145,13 @@ def adamw_update(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig
                 o.view(-1)[i:i + UPDATE_CHUNK] = r
         return outs
 
-    out = [leaf(p, g, m, v) for p, g, m, v in
+    def stored_leaf(p, g, m, v):
+        if not isinstance(p, Stored):
+            return leaf(p, g, m, v)
+        outs = leaf(p.local, g.local, m.local, v.local)
+        return tuple(p.with_local(o) for o in outs)
+
+    out = [stored_leaf(p, g, m, v) for p, g, m, v in
            zip(leaves(params), leaves(grads), leaves(state.m), leaves(state.v))]
     new_p = unflatten(params, [o[0] for o in out])
     new_m = unflatten(params, [o[1] for o in out])
