@@ -162,7 +162,16 @@
    reference's defaults: qwen3's smoke config, "gimbal", 2 engines,
    BurstGPT --n 40) in a subprocess on the card, plain and with
    ``--fail-engine 1``: every request must finish and the failure must
-   re-route requests; prints its report lines and wall seconds.
+   re-route requests; prints its report lines and wall seconds.  Then
+   runs ``python -m repro_torch.launch.dryrun`` in subprocesses, all at
+   once: five cells at full depth on the production meshes, and qwen3's
+   train_4k and decode_32k at depth 4 on 16 x 16 with the batch in blocks
+   over "data" (each rank computes its rows) and with ``--batch-whole``:
+   each must exit 0, and each pair's FLOPs a rank must fall at least 8x
+   with the batch in blocks.  T1c and the ctx phase's decode steps run
+   with their batch stored in blocks, so each prints its collectives a
+   step, and the paged engine runs print the pool's ``usage()`` and
+   ``kv_bytes_used()`` after the drain, which must be 0.
 12. Prints the card's name and power limit, one JSON line listing the
    kernels (with the cluster, families, variants, ssm, ctx and train
    runs' launches beside the main path's), and as the last line
@@ -1347,11 +1356,15 @@ def engine_run(torch, cfg, params, *, n_req: int, max_new: int, kv_quant, label:
     if reqs is None:
         reqs = _requests(cfg, n_req, max_new)
     run = _serve(torch, eng, reqs, "decode_step_paged", label, trace=trace)
-    log(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
-        f"blocks_used_after={eng.kv.blocks_used}")
-    if eng.kv.shared_hits <= 0 or eng.kv.blocks_used != 0:
-        raise AssertionError(f"engine[{label}]: shared_hits={eng.kv.shared_hits} "
-                             f"blocks_used={eng.kv.blocks_used}")
+    kv = eng.kv
+    log(f"engine[{label}]: shared_hits={kv.shared_hits} blocks_used_after={kv.blocks_used} "
+        f"usage_after={kv.usage()} kv_bytes_used_after={kv.kv_bytes_used()} "
+        f"num_free_after={kv.num_free}")
+    if (kv.shared_hits <= 0 or kv.blocks_used != 0 or kv.usage() != 0
+            or kv.kv_bytes_used() != 0 or kv.num_free != max_slots):
+        raise AssertionError(f"engine[{label}]: shared_hits={kv.shared_hits} "
+                             f"blocks_used={kv.blocks_used} usage={kv.usage()} "
+                             f"kv_bytes_used={kv.kv_bytes_used()} num_free={kv.num_free}")
     want = dict(run["path"], flash_decode_paged=run["seen"]["decode"] * _n_global(cfg),
                 flash_decode=0, topk_router=0)
     if run["launches"] != want:
@@ -2723,8 +2736,12 @@ def _train_t1c(torch) -> None:
         b = _train_batch(torch, cfg, data, i, DEVICE)
         return place(b, input_shardings(cfg, ctx, cell, b), ctx.mesh)
 
-    recs = _timed_steps(torch, fn, carry, (stored_batch(i) for i in range(T1_STEPS)), label)
+    with _CollectiveCount() as coll:
+        recs = _timed_steps(torch, fn, carry, (stored_batch(i) for i in range(T1_STEPS)),
+                            label)
     med = _step_summary(torch, recs, T1_SHAPE[0] * T1_SHAPE[1], label, T1_STEPS - 2)
+    log(f"train[{label}]: ctx path (the batch stored in blocks over \"data\"): collectives "
+        f"a step {({k: v / T1_STEPS for k, v in coll.counts.items()})}")
     t1 = T1_RESULT.get("T1")
     if t1:
         log(f"train[{label}]: ctx path {med['ms']:.3f} ms a step (forward+backward "
@@ -3333,30 +3350,48 @@ def store_phase(torch) -> None:
 
 # ----------------------------------------------------------------------------- dry-run phase
 
-DRYRUN_CELLS = (("qwen3-30b-a3b", "decode_32k", False), ("qwen3-30b-a3b", "decode_32k", True),
-                ("qwen3-30b-a3b", "train_4k", False), ("qwen3-30b-a3b", "train_4k", True),
-                ("qwen2-72b", "train_4k", False))
+# (arch, cell, multi-pod, depth (0: full), batch whole)
+DRYRUN_CELLS = (("qwen3-30b-a3b", "decode_32k", False, 0, False),
+                ("qwen3-30b-a3b", "decode_32k", True, 0, False),
+                ("qwen3-30b-a3b", "train_4k", False, 0, False),
+                ("qwen3-30b-a3b", "train_4k", True, 0, False),
+                ("qwen2-72b", "train_4k", False, 0, False))
+# cells run twice at depth 4 on 16 x 16: the batch in blocks over "data"
+# and whole on every rank; a rank's FLOPs must fall at least DRYRUN_SPLIT
+DRYRUN_PAIRS = (("qwen3-30b-a3b", "train_4k"), ("qwen3-30b-a3b", "decode_32k"))
+DRYRUN_SPLIT = 8.0
+
+
+def _dryrun_name(arch, cell, multi_pod, depth, whole) -> str:
+    return (f"{arch}__{cell}__{'2x16x16' if multi_pod else '16x16'}"
+            + (f"__depth{depth}" if depth else "") + ("__batch-whole" if whole else ""))
 
 
 def dryrun_phase(torch) -> None:
     """``python -m repro_torch.launch.dryrun`` as a user runs it, one
-    subprocess a cell at full depth, all started together (each starts the
-    fake group of its 256 or 512 ranks in its own process): each must exit
-    0; its record's per-rank argument bytes, peak, FLOPs and collective
-    bytes are printed beside the card's memory."""
+    subprocess a cell, all started together (each starts the fake group of
+    its 256 or 512 ranks in its own process): the full-depth cells, and
+    each of DRYRUN_PAIRS at depth 4 with the batch in blocks and with
+    ``--batch-whole``.  Each must exit 0; its record's per-rank argument
+    bytes, peak, FLOPs and collective bytes are printed beside the card's
+    memory; each pair's FLOPs a rank must fall at least DRYRUN_SPLIT times
+    with the batch in blocks."""
     t0 = time.perf_counter()
     out = ROOT / "build" / "dryrun"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     card = torch.cuda.get_device_properties(0).total_memory
+    runs = list(DRYRUN_CELLS) + [(a, c, False, 4, w) for a, c in DRYRUN_PAIRS
+                                 for w in (False, True)]
     procs = []
-    for arch, cell, multi_pod in DRYRUN_CELLS:
+    for arch, cell, multi_pod, depth, whole in runs:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--cell",
-               cell, "--out", str(out)] + (["--multi-pod"] if multi_pod else [])
-        procs.append((arch, cell, multi_pod, time.perf_counter(),
+               cell, "--out", str(out)] + (["--multi-pod"] if multi_pod else []) \
+            + (["--depth", str(depth)] if depth else []) + (["--batch-whole"] if whole else [])
+        procs.append(((arch, cell, multi_pod, depth, whole), time.perf_counter(),
                       subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)))
-    failed = []
-    for arch, cell, multi_pod, t1, proc in procs:
+    failed, recs = [], {}
+    for key, t1, proc in procs:
         try:
             text, _ = proc.communicate(timeout=600)
         finally:
@@ -3364,19 +3399,32 @@ def dryrun_phase(torch) -> None:
                 proc.kill()
                 proc.communicate()
         wall = time.perf_counter() - t1
-        mesh = "2x16x16" if multi_pod else "16x16"
+        name = _dryrun_name(*key)
         if proc.returncode != 0:
-            failed.append((arch, cell, mesh, proc.returncode))
-            log(f"dryrun[{arch} {cell} {mesh}]: exit {proc.returncode}\n{text[-3000:]}")
+            failed.append((name, proc.returncode))
+            log(f"dryrun[{name}]: exit {proc.returncode}\n{text[-3000:]}")
             continue
-        rec = json.loads((out / f"{arch}__{cell}__{mesh}.json").read_text())
+        rec = recs[key] = json.loads((out / f"{name}.json").read_text())
         mem = rec["memory_analysis"]
-        log(f"dryrun[{arch} {cell} {mesh}]: exit 0 in {wall:.1f} s wall; per rank: argument "
+        log(f"dryrun[{name}]: exit 0 in {wall:.1f} s wall; per rank: argument "
             f"{mem['argument_size_in_bytes']} B, output {mem['output_size_in_bytes']} B, peak "
             f"{mem['peak_size_in_bytes']} B ({mem['peak_size_in_bytes'] / card:.2f}x the card's "
             f"{card} B), {rec['flops_per_dev']:.4e} FLOPs, collective wire bytes "
             f"{rec['collective_bytes_per_dev']:.6e} ({rec['collectives']['counts']}), "
             f"dominant {rec['dominant']}")
+    for arch, cell in DRYRUN_PAIRS:
+        blocks, whole = (recs.get((arch, cell, False, 4, w)) for w in (False, True))
+        if blocks is None or whole is None:
+            continue
+        fell = whole["flops_per_dev"] / max(blocks["flops_per_dev"], 1.0)
+        peak = (whole["memory_analysis"]["peak_size_in_bytes"]
+                / max(blocks["memory_analysis"]["peak_size_in_bytes"], 1))
+        log(f"dryrun[{arch} {cell} 16x16 depth 4]: the batch in blocks over \"data\" against "
+            f"whole on every rank: FLOPs a rank {blocks['flops_per_dev']:.4e} against "
+            f"{whole['flops_per_dev']:.4e} ({fell:.2f}x fewer, gate {DRYRUN_SPLIT}x), peak "
+            f"{peak:.2f}x lower")
+        if not fell >= DRYRUN_SPLIT:
+            failed.append((f"{arch} {cell}: FLOPs fell {fell:.2f}x", None))
     log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
     if failed:
         raise AssertionError(f"dryrun phase: {failed}")

@@ -37,6 +37,29 @@ input, over the ranks that hold the same block).  Every rank then holds
 the whole, true gradient of every tensor outside the regions, as a single
 rank would, so a stored tensor gathered on use takes its block of that
 gradient.
+
+Batch blocks (``ShardCtx.batch_blocks``, set by the steps of
+``launch/steps.py`` when their batch arrives stored): every activation
+outside a region is this rank's block of the global batch on dim 0, split
+over the batch axes and replicated over the others, as the reference's
+GSPMD computes it from its input shardings.  A region takes an input whose
+``in_spec`` puts dim 0 on the batch axes as that block, without a narrow,
+and returns such an output as the rank's block; a stored cache opens to
+its batch block (``opened``, ``gather_rows``).  The gradients outside the
+regions then follow a second convention: a rank holds the true gradient of
+its block of an activation, and for a weight (whole on every rank) a
+partial one, the sum over its batch block alone; the true gradient is the
+sum of the partials over the batch axes.  So an input leaves a region with
+its gradient summed over the axes other than the batch axes only; a stored
+weight gathered on use sums its partial over the batch axes and keeps its
+block (``_Gather``: a reduce-scatter over a batch axis the leaf is split
+on, an all-reduce over one it is whole on); a weight kept whole has its
+partial summed by ``sum_partials``; and a value summed over the batch
+blocks (``sum_blocks``: a loss, the MoE statistics) passes its gradient
+through, since every rank holds that sum and its true gradient.  A stored
+block that enters a region as it is already gets its true gradient there
+(the body computes on the batch block, and the shares are summed over the
+ranks that hold the same block), so it takes no further sum.
 """
 from __future__ import annotations
 
@@ -247,6 +270,17 @@ def _gather(x: torch.Tensor, group, dim: int, order: list) -> torch.Tensor:
     return out.reshape(x.shape[:dim] + (n * x.shape[dim],) + x.shape[dim + 1:])
 
 
+def _scatter_sum(g: torch.Tensor, group, dim: int, order: list) -> torch.Tensor:
+    """The sum of the group's ``g`` over its members, each keeping its block
+    of ``dim`` (a reduce-scatter; the transpose of ``_gather``)."""
+    n, d = len(order), dim
+    stacked = g.reshape(g.shape[:d] + (n, g.shape[d] // n) + g.shape[d + 1:]).movedim(d, 0)
+    src = _blocks_to(stacked.contiguous(), order, inverse=True).contiguous()
+    out = src.new_empty(src.shape[1:])
+    _reduce_scatter_single(out, src.view((n * src.shape[1],) + tuple(src.shape[2:])), group)
+    return out
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, order):
@@ -255,13 +289,7 @@ class _AllGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        n, d = len(ctx.order), ctx.dim
-        stacked = g.reshape(g.shape[:d] + (n, g.shape[d] // n) + g.shape[d + 1:]).movedim(d, 0)
-        src = _blocks_to(stacked.contiguous(), ctx.order, inverse=True).contiguous()
-        out = src.new_empty(src.shape[1:])
-        _reduce_scatter_single(out, src.view((n * src.shape[1],) + tuple(src.shape[2:])),
-                               ctx.group)
-        return out, None, None, None
+        return _scatter_sum(g, ctx.group, ctx.dim, ctx.order), None, None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -308,12 +336,14 @@ def _narrow(x: torch.Tensor, block) -> torch.Tensor:
 
 
 class _Enter(torch.autograd.Function):
-    """This rank's block of a whole input; its gradient (a share) is
-    placed in a zero tensor of the whole shape and summed over the mesh."""
+    """This rank's block of an input (whole, or under batch blocks the
+    rank's batch block); its gradient (a share) is placed in a zero tensor
+    of the input's shape and summed over ``group``: the whole mesh, or under
+    batch blocks the axes other than the batch axes (None: no sum)."""
 
     @staticmethod
-    def forward(ctx, x, block, world):
-        ctx.shape, ctx.block, ctx.world = x.shape, block, world
+    def forward(ctx, x, block, group):
+        ctx.shape, ctx.block, ctx.group = x.shape, block, group
         return _narrow(x, block).view_as(_narrow(x, block))
 
     @staticmethod
@@ -324,14 +354,16 @@ class _Enter(torch.autograd.Function):
             _narrow(whole, ctx.block).copy_(g)
         else:
             whole = g.contiguous().clone()
-        dist.all_reduce(whole, group=ctx.world)
+        if ctx.group is not None:
+            dist.all_reduce(whole, group=ctx.group)
         return whole, None, None
 
 
 class _Exit(torch.autograd.Function):
-    """Gather a body output whole along its split dimensions; its whole
-    gradient goes back as this rank's block, to the rank at coordinate 0
-    of every axis the output is replicated over (zeros elsewhere)."""
+    """Gather a body output whole along the split dimensions of ``spec``
+    (under batch blocks, all but a batch dim 0); its gradient goes back as
+    this rank's block, to the rank at coordinate 0 of every axis the output
+    is replicated over (zeros elsewhere)."""
 
     @staticmethod
     def forward(ctx, y, mesh, spec, owner):
@@ -371,12 +403,38 @@ def _pad_spec(spec, ndim: int) -> tuple:
     return tuple(spec) + (None,) * (ndim - len(spec))
 
 
+def _row_axes() -> Tuple[str, ...]:
+    """The batch axes when the active context holds batch blocks, else ()."""
+    ctx = current_ctx()
+    return tuple(ctx.batch_axes) if ctx is not None and ctx.batch_blocks else ()
+
+
+def _rows_cut(spec, rows: Tuple[str, ...]) -> tuple:
+    """``spec`` with every entry that is exactly the batch axes ``rows``
+    taken out (None): the dimensions a batch block already holds as the
+    rank's block."""
+    if not rows:
+        return tuple(spec)
+    return tuple(None if _as_axes(e) == rows else e for e in spec)
+
+
+def _local_spec(spec, rows: Tuple[str, ...]) -> tuple:
+    """A region argument's spec with dim 0 taken out when it is the batch
+    axes of batch blocks (the argument is that block already)."""
+    spec = tuple(spec)
+    if rows and spec and _as_axes(spec[0]) == rows:
+        return (None,) + spec[1:]
+    return spec
+
+
 def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
     """The port of ``jax.shard_map`` (``check_vma=False``): a callable
     that runs ``fn`` on this rank's blocks of its tensor arguments (whole,
     or stored with the argument's ``in_spec``) and returns its outputs
     whole.  ``in_specs`` has one spec per argument; ``out_specs`` is one
-    spec or a tuple of them, like ``fn``'s result.
+    spec or a tuple of them, like ``fn``'s result.  Under batch blocks an
+    argument whose spec puts dim 0 on the batch axes is the rank's block of
+    that dim already, and such an output stays the rank's block.
 
     An input that needs no gradient enters as a view of the caller's
     tensor (of a stored one's block), so a body may write its block in
@@ -384,15 +442,17 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
     single = isinstance(out_specs, P)
 
     def call(*args):
-        world = mesh.group(mesh.axis_names)
+        rows = _row_axes()
+        rest = tuple(a for a in mesh.axis_names if a not in rows)   # an input's gradient sum
+        group = mesh.group(rest) if rest else None
         local = []
         for a, spec in zip(args, in_specs):
             if isinstance(a, Stored):
                 local.append(_enter_stored(mesh, a, _pad_spec(spec, a.ndim)))
                 continue
-            block = _block(mesh, a.shape, _pad_spec(spec, a.ndim))
+            block = _block(mesh, a.shape, _local_spec(_pad_spec(spec, a.ndim), rows))
             if a.requires_grad and torch.is_grad_enabled():
-                local.append(_Enter.apply(a, block, world))
+                local.append(_Enter.apply(a, block, group))
             else:
                 local.append(_narrow(a, block))
         outs = fn(*local)
@@ -402,12 +462,13 @@ def shard_map(fn: Callable, mesh: Mesh, in_specs, out_specs) -> Callable:
         whole = []
         for y, spec in zip(outs, specs):
             spec = _pad_spec(spec, y.ndim)
+            cut = _local_spec(spec, rows)
             if not (y.requires_grad and torch.is_grad_enabled()):
-                whole.append(_whole(mesh, y, spec) if any(spec) else y)
+                whole.append(_whole(mesh, y, cut) if any(cut) else y)
                 continue
             used = {a for e in spec for a in _as_axes(e)}
             owner = all(coords[a] == 0 for a in mesh.axis_names if a not in used)
-            whole.append(_Exit.apply(y, mesh, spec, owner))
+            whole.append(_Exit.apply(y, mesh, cut, owner))
         return whole[0] if single else tuple(whole)
 
     return call
@@ -492,26 +553,83 @@ def _enter_stored(mesh: Mesh, a: Stored, spec) -> torch.Tensor:
 
 
 class _Gather(torch.autograd.Function):
-    """A stored block gathered whole, outside any region; the whole
-    gradient there is the true one on every rank, so the block's gradient
-    is its part of it."""
+    """A stored block gathered whole, outside any region.  Without batch
+    blocks the whole gradient there is the true one on every rank, so the
+    block's gradient is its part of it.  Under batch blocks (``rows``, the
+    batch axes) it is this rank's partial: summed over the batch axes (a
+    reduce-scatter along a dimension split over them, an all-reduce over
+    those the leaf is whole on), then cut to the block."""
 
     @staticmethod
-    def forward(ctx, local, mesh, spec, block):
-        ctx.block = block
+    def forward(ctx, local, mesh, spec, block, rows):
+        ctx.mesh, ctx.spec, ctx.block, ctx.rows = mesh, spec, block, rows
         return _whole(mesh, local, spec)
 
     @staticmethod
     def backward(ctx, g):
-        return _narrow(g, ctx.block).contiguous(), None, None, None
+        if not ctx.rows:
+            return _narrow(g, ctx.block).contiguous(), None, None, None, None
+        return _sum_rows(g, ctx.mesh, ctx.spec, ctx.rows), None, None, None, None
+
+
+def _sum_rows(g: torch.Tensor, mesh: Mesh, spec, rows: Tuple[str, ...]) -> torch.Tensor:
+    """This rank's block (by ``spec``) of the sum of the partial gradients
+    ``g`` (whole) over the batch axes ``rows``.  The ranks of a batch group
+    share their other coordinates, so the dimensions split over other axes
+    are cut first."""
+    out, summed = g, set()
+    for dim, entry in enumerate(spec):
+        axes = _as_axes(entry)
+        if axes and not set(axes) & set(rows):
+            size = g.shape[dim] // mesh.axis_size(axes)
+            out = out.narrow(dim, mesh.axis_index(axes) * size, size)
+    for dim, entry in enumerate(spec):
+        axes = _as_axes(entry)
+        if not set(axes) & set(rows):
+            continue
+        if not set(axes) <= set(rows):
+            raise ValueError(f"dim {dim} of a stored leaf is split over {axes}, batch and "
+                             f"other axes together")
+        out = _scatter_sum(out, mesh.group(axes), dim, mesh._member_order(axes))
+        summed |= set(axes)
+    rest = tuple(a for a in rows if a not in summed)
+    if rest:
+        import torch.distributed as dist
+        out = out.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(out, group=mesh.group(rest))
+    return out.contiguous()
 
 
 def gather(x):
     """``x`` whole: a stored tensor gathered along every split dimension
-    (an all-gather per split, even over one rank), anything else as it is."""
+    (an all-gather per split, even over one rank), anything else as it is.
+    For a weight: under batch blocks its gradient sums the ranks' partials
+    (``_Gather``)."""
     if not isinstance(x, Stored):
         return x
-    return _Gather.apply(x.local, x.mesh, x.spec, x.block())
+    return _Gather.apply(x.local, x.mesh, x.spec, x.block(), _row_axes())
+
+
+_WHOLE_CACHE = ("a whole (unstored) cache cannot serve batch blocks: store it by its "
+                "cache specs (``sharding.stored_zeros`` / ``place``), or pass the batch whole")
+
+
+def gather_rows(x):
+    """A stored batch-major tensor (a cache leaf) as this rank uses it:
+    gathered along every split dimension, except, under batch blocks, the
+    batch dimension, which stays the rank's block.  Under batch blocks a
+    whole tensor is refused (it holds every row, the activations one
+    block)."""
+    check_cache(x)
+    if not isinstance(x, Stored):
+        return x
+    return _whole(x.mesh, x.local, _rows_cut(x.spec, _row_axes()))
+
+
+def check_cache(x) -> None:
+    """Refuse a whole (unstored) cache leaf under batch blocks."""
+    if _row_axes() and not isinstance(x, Stored):
+        raise ValueError(_WHOLE_CACHE)
 
 
 def _map_leaves(fn, tree):
@@ -531,8 +649,10 @@ def gather_tree(tree, keep: Tuple[str, ...] = ()):
 
 
 def write_back(dst: Stored, whole: torch.Tensor) -> None:
-    """Copy this rank's block of ``whole`` into ``dst``'s block."""
-    part = _narrow(whole, dst.block())
+    """Copy this rank's block of ``whole`` (as ``gather_rows`` gave it:
+    under batch blocks the batch dimension is the rank's block already)
+    into ``dst``'s block."""
+    part = _narrow(whole, _block(dst.mesh, dst.shape, _rows_cut(dst.spec, _row_axes())))
     if part.data_ptr() != dst.local.data_ptr() or part.stride() != dst.local.stride():
         dst.local.copy_(part)
 
@@ -540,15 +660,15 @@ def write_back(dst: Stored, whole: torch.Tensor) -> None:
 @contextlib.contextmanager
 def opened(tree):
     """A cache tree (dicts of tensors) with its stored leaves gathered
-    whole, for code outside a region to read and write in place; on exit
-    each rank's block of every stored leaf takes what was written."""
+    (``gather_rows``: whole, under batch blocks the rank's rows), for code
+    outside a region to read and write in place; on exit each rank's block
+    of every stored leaf takes what was written."""
     stored = []
 
     def open_leaf(x):
-        if not isinstance(x, Stored):
-            return x
-        whole = gather(x)
-        stored.append((x, whole))
+        whole = gather_rows(x)
+        if isinstance(x, Stored):
+            stored.append((x, whole))
         return whole
 
     out = _map_leaves(open_leaf, tree)
@@ -573,6 +693,9 @@ class ShardCtx:
     paired_lg: bool = False                   # gemma2's (local, global) layer pairs in
                                               # the reference; the port's loop already
                                               # gives each layer a static window flag
+    batch_blocks: bool = False                # activations hold this rank's block of
+                                              # the global batch (see the module
+                                              # docstring); the steps set it
 
     @property
     def dp(self) -> int:
@@ -608,5 +731,49 @@ def divides(n: int, d: int) -> bool:
 
 
 def batch_axis(ctx: ShardCtx, b: int):
-    """The batch axes if ``b`` splits over them, else None (replicated)."""
-    return ctx.batch_axes if divides(b, ctx.dp) else None
+    """The batch axes if a batch of ``b`` rows splits over them, else None
+    (replicated).  Under batch blocks ``b`` is the rank's block of a batch
+    that split."""
+    return ctx.batch_axes if ctx.batch_blocks or divides(b, ctx.dp) else None
+
+
+class _SumBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_blocks(x: torch.Tensor, ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """``x`` summed over the batch blocks (an all-reduce over the batch
+    axes) under batch blocks, else ``x``: the global sum, held by every
+    rank.  Its gradient passes through unsummed, since every rank holds
+    the true gradient of that sum."""
+    ctx = ctx if ctx is not None else current_ctx()
+    if ctx is None or not ctx.batch_blocks:
+        return x
+    return _SumBlocks.apply(x, ctx.mesh.group(ctx.batch_axes))
+
+
+def sum_partials(grads: Sequence[torch.Tensor], ctx: ShardCtx) -> list:
+    """The true gradients of weights kept whole from this rank's partials:
+    under batch blocks summed over the batch axes, one all-reduce a dtype
+    for all of them; else as they are."""
+    grads = list(grads)
+    if not ctx.batch_blocks or not grads:
+        return grads
+    import torch.distributed as dist
+    out = list(grads)
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        flat = torch.cat([grads[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, group=ctx.mesh.group(ctx.batch_axes))
+        for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
+            out[i] = part.view_as(grads[i])
+    return out

@@ -13,6 +13,10 @@ so it runs what a rank of the port would run, with shapes only:
   * the store (``distributed/sharding.py``) of the params, the cache or the
     AdamW state and the batch on the meta device, cut by the cell's specs;
   * one ctx'd step (``launch/steps.py``) on it, with the MoE stats off.
+    The batch is stored cut by its specs, so the step computes on the
+    rank's block of the global batch, as the reference's GSPMD does;
+    ``--batch-whole`` runs the cell with no batch axes (every rank holds
+    and computes the whole batch), for comparison.
 
 Per cell it records:
   * per-rank argument and output bytes: the local bytes of the step's
@@ -32,10 +36,11 @@ Per cell it records:
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-72b --cell decode_32k [--multi-pod]
+      [--depth D] [--batch-whole]
   python -m repro_torch.launch.dryrun --all [--jobs 4] [--meshes both]
   python -m repro_torch.launch.dryrun --table [--out DIR]
 
-Records go to ``build/dryrun/<arch>__<cell>__<mesh>[__depth<d>].json``.
+Records go to ``build/dryrun/<arch>__<cell>__<mesh>[__depth<d>][__batch-whole].json``.
 """
 from __future__ import annotations
 
@@ -261,7 +266,7 @@ def output_bytes(outs) -> int:
 
 def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: Path,
              overrides: dict | None = None, smoke: bool = False,
-             depth: int = 0) -> dict:
+             depth: int = 0, batch_whole: bool = False) -> dict:
     import torch.distributed as dist
     from torch.distributed._tools.mem_tracker import MemTracker
     from torch.utils.flop_counter import FlopCounterMode
@@ -279,7 +284,7 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: Path,
     _fake_group(n_dev)
     try:
         mesh = make_production_mesh(multi_pod=multi_pod)
-        ctx = S.make_ctx(mesh, **overrides)
+        ctx = S.make_ctx(mesh, **overrides, **({"batch_axes": ()} if batch_whole else {}))
         fn, args = build_cell(cfg, cell, ctx)
         t_build = time.time() - t0
         mem = MemTracker()
@@ -326,6 +331,7 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: Path,
         "unread_arguments": dict(unread),
         "build_s": round(t_build, 2), "run_s": round(t_run, 2),
         "overrides": overrides,
+        "batch_whole": batch_whole,
     }
     out_dir.mkdir(parents=True, exist_ok=True)
     ov = dict(overrides)
@@ -337,6 +343,8 @@ def run_cell(arch: str, cell_name: str, multi_pod: bool, out_dir: Path,
         fname += f"__depth{depth}"
     if suffix:
         fname += f"__{suffix}"
+    if batch_whole:
+        fname += "__batch-whole"
     (out_dir / f"{fname}.json").write_text(json.dumps(rec, indent=1))
     print(f"[dryrun] {arch} {cell_name} mesh={rec['mesh']} "
           f"run={t_run:.1f}s dominant={dominant} "
@@ -419,7 +427,8 @@ def table(out_dir: Path) -> str:
     recs: Dict[tuple, dict] = {}
     for f in sorted(out_dir.glob("*.json")):
         rec = json.loads(f.read_text())
-        if rec["depth"] == rec["full_depth"] and not rec["overrides"]:
+        if (rec["depth"] == rec["full_depth"] and not rec["overrides"]
+                and not rec.get("batch_whole")):
             recs.setdefault((rec["arch"], rec["cell"]), {})[rec["mesh"]] = rec
 
     def both(row: dict, get) -> str:
@@ -451,6 +460,8 @@ def main() -> int:
                     help="reduced config + shapes (plumbing validation)")
     ap.add_argument("--depth", type=int, default=0,
                     help="reduced depth (the reference's roofline probes)")
+    ap.add_argument("--batch-whole", action="store_true",
+                    help="no batch axes: every rank holds and computes the whole batch")
     ap.add_argument("--table", action="store_true",
                     help="print the full-depth records under --out as a markdown table")
     args = ap.parse_args()
@@ -471,7 +482,7 @@ def main() -> int:
             except ValueError:
                 overrides[k] = v
     run_cell(args.arch, args.cell, args.multi_pod, out_dir, overrides,
-             smoke=args.smoke, depth=args.depth)
+             smoke=args.smoke, depth=args.depth, batch_whole=args.batch_whole)
     return 0
 
 

@@ -12,21 +12,29 @@ None.  The train step differentiates with autograd; training reaches
 none of the port's kernels.
 
 A step takes the store (``distributed/sharding.py``) as well as whole
-trees: given stored params, the prefill step builds a stored cache, every
-step gathers its stored inputs whole where the model takes them, and the
-outputs come back stored by the out specs (what a rank keeps of them).
-``train_inputs``, ``abstract_cache`` and ``abstract_train_state`` give a
-cell's inputs and state on the meta device (the dry run's).
+trees.  Given stored params, the prefill step builds a stored cache, and
+stored weights are gathered whole where the model takes them.  A batch
+that arrives stored (cut by ``input_shardings``, as ``launch.train`` and the
+dry run place it) runs as batch blocks (``batch_view``): the step computes
+on this rank's rows only, as the reference's GSPMD does from its input
+shardings; the loss is the global mean, the gradients the global ones, and
+the next tokens come back as the rank's block.  A whole batch runs whole
+on every rank, and the outputs come back stored by the out specs where the
+params are stored.  ``train_inputs``, ``abstract_cache`` and
+``abstract_train_state`` give a cell's inputs and state on the meta device
+(the dry run's).
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Any, Optional
 
 import torch
 
-from repro_torch.distributed.context import (P, ShardCtx, Stored, batch_axis, gather,
-                                             shard_ctx)
+from repro_torch.distributed.context import (P, ShardCtx, Stored, _as_axes, batch_axis,
+                                             current_ctx, gather, shard_ctx, sum_blocks,
+                                             sum_partials)
 from repro_torch.distributed.sharding import (cache_specs, input_shardings, is_stored,
                                               param_specs, place, stored_zeros)
 from repro_torch.models import model as M
@@ -37,9 +45,10 @@ from repro_torch.tree import leaves, unflatten
 
 
 def make_ctx(mesh, **overrides) -> ShardCtx:
-    """The shard context of ``mesh``: its "pod" and "data" axes batch."""
-    batch_axes = tuple(a for a in mesh.axis_names if a in ("pod", "data"))
-    return ShardCtx(mesh=mesh, batch_axes=batch_axes, **overrides)
+    """The shard context of ``mesh``: its "pod" and "data" axes batch
+    (unless ``overrides`` names the batch axes)."""
+    overrides.setdefault("batch_axes", tuple(a for a in mesh.axis_names if a in ("pod", "data")))
+    return ShardCtx(mesh=mesh, **overrides)
 
 
 def _batch_ax(ctx: ShardCtx, b: int):
@@ -52,8 +61,31 @@ def _under(ctx: Optional[ShardCtx]):
     return shard_ctx(ctx) if ctx is not None else contextlib.nullcontext()
 
 
-def _whole_batch(batch: dict) -> dict:
-    return {k: gather(v) for k, v in batch.items()}
+def batch_view(ctx: Optional[ShardCtx], batch: dict):
+    """(the context a step's body runs under, the batch as it computes on
+    it).  A batch whose tokens arrive stored runs as batch blocks: each
+    stored input (cut on dim 0 over the batch axes, nothing else) gives its
+    block, and the context says so (``ShardCtx.batch_blocks``).  Otherwise
+    every stored input is gathered whole and ``ctx`` is returned as it is."""
+    if ctx is None or not isinstance(batch.get("tokens"), Stored):
+        return ctx, {k: gather(v) for k, v in batch.items()}
+    rows, out = tuple(ctx.batch_axes), {}
+    for k, v in batch.items():
+        if k == "placements":
+            out[k] = gather(v)
+        elif not isinstance(v, Stored):
+            raise ValueError(f"the batch arrives stored, but its {k!r} is whole")
+        elif _as_axes(v.spec[0]) != rows or any(_as_axes(e) for e in v.spec[1:]):
+            raise ValueError(f"a batch input {k!r} cut by {v.spec} is no block of rows over "
+                             f"the batch axes {rows}")
+        else:
+            out[k] = v.local
+    return dataclasses.replace(ctx, batch_blocks=True), out
+
+
+def _rows_out(x: torch.Tensor, ctx: ShardCtx) -> Stored:
+    """This rank's block of a per-row output, stored by ``P(batch axes)``."""
+    return Stored(x, P(ctx.batch_axes), (x.shape[0] * ctx.dp,), ctx.mesh)
 
 
 def placements_input(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
@@ -72,7 +104,7 @@ def placements_input(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """logits (B, S, V) f32; labels (B, S) int.  Mean over (B, S) of
-    logsumexp - gold logit.
+    logsumexp - gold logit; under batch blocks over the global batch.
 
     The gold logit is a ``gather``, where the reference contracts the
     logits with a one-hot (a layout choice for vocab-sharded logits): a sum
@@ -81,6 +113,10 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     one-hot (622 MB at qwen3's vocabulary and 8 x 128 tokens)."""
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ctx = current_ctx()
+    if ctx is not None and ctx.batch_blocks:
+        # the global mean: the blocks' sums over the global count
+        return sum_blocks(torch.sum(lse - gold), ctx) / (lse.numel() * ctx.dp)
     return torch.mean(lse - gold)
 
 
@@ -120,8 +156,9 @@ def make_train_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
         return loss
 
     def train_step(params, opt_state, batch):
-        with _under(ctx):
-            loss, grads = value_and_grad(loss_fn, params, _whole_batch(batch))
+        body_ctx, batch = batch_view(ctx, batch)
+        with _under(body_ctx):
+            loss, grads = value_and_grad(loss_fn, params, batch, ctx=body_ctx)
             params, opt_state, om = adamw_update(params, grads, opt_state, opt_cfg)
             return params, opt_state, {"loss": loss, **om}
 
@@ -133,11 +170,13 @@ def make_train_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
     return train_step, (pspecs, ospecs), (pspecs, ospecs, metric_specs)
 
 
-def value_and_grad(loss_fn, params: Any, *args):
+def value_and_grad(loss_fn, params: Any, *args, ctx: Optional[ShardCtx] = None):
     """(loss, grads): ``loss_fn(params, *args)`` and its gradient with
     respect to every floating leaf of ``params``, as a tree like it (a leaf
     the loss does not reach gets zeros, as in JAX).  A stored leaf's
-    gradient is stored like it: the gradient of its block."""
+    gradient is stored like it: the gradient of its block.  Under a
+    context with batch blocks, a leaf kept whole has its partial gradient
+    summed over the batch axes (``context.sum_partials``)."""
     def local(p):
         return p.local if isinstance(p, Stored) else p
 
@@ -150,11 +189,14 @@ def value_and_grad(loss_fn, params: Any, *args):
         loss = loss_fn(unflatten(params, [like(p, t) for p, t in zip(orig, flat)]), *args)
         wrt = [p for p in flat if p.requires_grad]
         got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
-    grads = []
-    for p, t in zip(orig, flat):
-        g = next(got) if t.requires_grad else None
-        grads.append(like(p, torch.zeros_like(t) if g is None else g))
-    return loss.detach(), unflatten(params, grads)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in ((t, next(got) if t.requires_grad else None) for t in flat)]
+    if ctx is not None:
+        whole = [i for i, (p, t) in enumerate(zip(orig, flat))
+                 if t.requires_grad and not isinstance(p, Stored)]
+        for i, g in zip(whole, sum_partials([grads[i] for i in whole], ctx)):
+            grads[i] = g
+    return loss.detach(), unflatten(params, [like(p, g) for p, g in zip(orig, grads)])
 
 
 # =============================================================================
@@ -178,16 +220,19 @@ def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
                       cell: Optional[ShapeCell] = None):
     """Returns (prefill_step, cache specs, out specs), the specs None
     without a context.  ``prefill_step(params, batch)`` -> (first greedy
-    token (B,) int32, the cache it filled)."""
+    token (B,) int32, the cache it filled); on the store (stored params or
+    batch) the cache is stored, and under batch blocks the tokens are the
+    rank's block, stored by ``P(batch axes)``."""
     b, total_seq = cell.global_batch, _total_seq(cfg, cell)
 
     cspecs, out_specs = _serve_specs(cfg, ctx, b, total_seq)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        stored = ctx is not None and is_stored(params)
-        with _under(ctx):
-            batch = _whole_batch(batch)
+        body_ctx, batch = batch_view(ctx, batch)
+        blocks = body_ctx is not None and body_ctx.batch_blocks
+        stored = ctx is not None and (blocks or is_stored(params))
+        with _under(body_ctx):
             tokens = batch["tokens"]
             if stored:
                 cache = stored_zeros(M.cache_shapes(cfg, b, total_seq), cspecs, ctx.mesh,
@@ -198,6 +243,8 @@ def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
             logits, new_cache, _ = M.prefill(params, cfg, tokens, cache,
                                              placements=batch.get("placements"), **kw)
             first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            if blocks:
+                return _rows_out(first, ctx), new_cache
             return (place(first, out_specs[0], ctx.mesh) if stored else first), new_cache
 
     return prefill_step, cspecs, out_specs
@@ -209,21 +256,26 @@ def make_decode_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
     Returns (serve_step, cache specs, out specs), the specs None without a
     context.  ``serve_step(params, cache, batch)`` -> (next greedy token
     (B,) int32, the cache, written in place); MLA decodes absorbed when
-    ``ctx.mla_absorb``."""
+    ``ctx.mla_absorb``.  Under batch blocks the cache must be stored and
+    the tokens come back as the rank's block, stored by ``P(batch
+    axes)``."""
     absorb = ctx.mla_absorb if ctx is not None else False
     cspecs, out_specs = (_serve_specs(cfg, ctx, cell.global_batch, _total_seq(cfg, cell))
                          if cell is not None else (None, (None, None)))
 
     @torch.no_grad()
     def serve_step(params, cache, batch):
+        body_ctx, batch = batch_view(ctx, batch)
+        blocks = body_ctx is not None and body_ctx.batch_blocks
         stored = ctx is not None and is_stored(params)
-        with _under(ctx):
-            batch = _whole_batch(batch)
+        with _under(body_ctx):
             logits, new_cache, _ = M.decode_step(params, cfg, batch["tokens"], cache,
                                                  batch["cache_pos"],
                                                  placements=batch.get("placements"),
                                                  mla_absorb=absorb)
             nxt = torch.argmax(logits, dim=-1).to(torch.int32)
+            if blocks:
+                return _rows_out(nxt, ctx), new_cache
             if stored:
                 nxt = place(nxt, P(_batch_ax(ctx, nxt.shape[0])), ctx.mesh)
             return nxt, new_cache

@@ -19,9 +19,11 @@ is started, as on one card), so a MoE trains through the expert-parallel
 path.  A larger mesh runs one rank a process over ``torch.distributed``
 (torchrun, or a group the caller started).  The params, the AdamW moments
 and each batch live on the store (``distributed/sharding.py``): a rank
-holds its block of every leaf its spec splits.  Every rank computes the
-same losses; a checkpoint gathers each leaf whole to rank 0, which writes
-it, and a resume keeps each rank's block.
+holds its block of every leaf its spec splits.  The batch goes to the step
+as stored, so each rank computes on its block of the global batch (its
+rows over the "data" axis); the loss is the global one on every rank and
+rank 0 logs it.  A checkpoint gathers each leaf whole to rank 0, which
+writes it, and a resume keeps each rank's block.
 """
 from __future__ import annotations
 
@@ -92,7 +94,7 @@ def train(arch: str, steps: int = 200, batch: int = 8, seq: int = 128,
         batch_dev = place(batch_dev, input_shardings(cfg, ctx, cell, batch_dev), mesh)
         params, opt_state, metrics = fn(params, opt_state, batch_dev)
         losses.append(float(metrics["loss"]))
-        if step % log_every == 0 or step == steps - 1:
+        if writer and (step % log_every == 0 or step == steps - 1):
             print(f"[train] step {step} loss {losses[-1]:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"({(time.time()-t0):.1f}s)")

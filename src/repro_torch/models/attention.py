@@ -30,7 +30,10 @@ chunk only (the reference's guarded write).  A stored cache (the store of
 ``distributed/sharding.py``) holds just that chunk, so nothing more is
 written; a whole cache is written on every rank as well, which is what
 gathering the chunks back would give.  Any other decode opens a stored
-cache whole and writes each rank's block back.  The reference's
+cache whole and writes each rank's block back.  Under batch blocks
+(``ShardCtx.batch_blocks``) ``x`` and ``cache_pos`` are this rank's rows,
+a stored cache's region block (or opened view) holds the same rows, and a
+whole cache, which holds every row, is refused.  The reference's
 sharding constraints on q and the expanded k/v move no value and are left
 out; ``distributed/sharding.py`` keeps their choice of layout.
 """
@@ -40,8 +43,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.context import (P, Stored, batch_axis, current_ctx, divides,
-                                             opened, shard_map)
+from repro_torch.distributed.context import (P, Stored, batch_axis, check_cache,
+                                             current_ctx, divides, opened, shard_map)
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import apply_rope, normal, rms_norm, softcap
@@ -195,6 +198,7 @@ def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 
     ctx = current_ctx()
     if ctx is not None and divides(cache["k"].shape[1], ctx.tp):
+        check_cache(cache["k"])
         out = _gqa_decode_seqsharded(cfg, q, k_new, v_new, cache, cache_pos, local, ctx)
         if not isinstance(cache["k"], Stored):
             cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
@@ -460,6 +464,7 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 
     ctx = current_ctx()
     if ctx is not None and divides(cache["ckv"].shape[1], ctx.tp):
+        check_cache(cache["ckv"])
         out = _mla_decode_seqsharded(cfg, params, q_nope, q_rope, ckv_new, krope_new,
                                      cache, cache_pos, ctx, absorb)
         if not isinstance(cache["ckv"], Stored):

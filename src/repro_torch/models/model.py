@@ -45,7 +45,11 @@ are left out; ``distributed/sharding.py`` keeps their choice of layout.
 Stored weights and caches (``distributed/sharding.py``'s store) are
 gathered whole where they are used: a layer's in its block
 (``models/blocks.py``), the embedding, the final norm and whisper's
-encoder norm and memory here.
+encoder norm and memory here.  Under batch blocks (``ShardCtx.batch_blocks``:
+the steps of ``launch/steps.py`` given a stored batch) every activation is
+this rank's rows of the global batch: the tokens, positions, a VLM's vision
+prefix, whisper's frames and encoder memory, and the logits; a stored
+cache opens to the rank's rows (``context.gather_rows``).
 """
 from __future__ import annotations
 
@@ -57,8 +61,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as devlib
-from repro_torch.distributed.context import (Stored, current_ctx, gather, gather_tree,
-                                             shard_ctx, write_back)
+from repro_torch.distributed.context import (Stored, current_ctx, gather, gather_rows,
+                                             gather_tree, shard_ctx, write_back)
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.config import ModelConfig
@@ -421,7 +425,7 @@ def _forward_encdec(params, cfg: ModelConfig, tokens, frames, cache, cache_pos,
     the decoder with cross-attention over its memory.  Decode reads the
     memory from the cache; prefill with a cache stores it there."""
     if decode:
-        memory = gather(cache["memory"])
+        memory = gather_rows(cache["memory"])
     else:
         x = frames.to(cfg.adtype)
         for i in range(cfg.num_encoder_layers):

@@ -20,6 +20,17 @@ selection reads a zero row, never a live slot) and sums them in f32 in
 selection order, so the output is one answer per input on every device and
 in every run.  The reference scatter-adds in slot order, so the two agree
 within float tolerance, not bit for bit.
+
+Under batch blocks (``ShardCtx.batch_blocks``: ``x`` is this rank's block
+of the global batch, as in a step whose batch arrived stored) the layer
+keeps the reference's global semantics, which its GSPMD gives it: the
+capacity is the global batch's, and a selection is kept when its position
+in its slot, counting the selections of the earlier blocks first (their
+per-slot counts, all-gathered over the batch axes), falls below it.  The
+expert FFN works row by row, so each rank runs it on its own kept tokens
+only, in buffers of at most its token count a slot.  The router statistics
+are summed over the blocks.  The fused mode's router kernel numbers tokens
+within its call, so it is refused there.
 """
 from __future__ import annotations
 
@@ -90,14 +101,16 @@ class ExpertPlacement(NamedTuple):
                                replica_slots=tbl.to(torch.int32),
                                replica_count=count)
 
-    def dispatch_slots(self, expert_ids: torch.Tensor) -> torch.Tensor:
+    def dispatch_slots(self, expert_ids: torch.Tensor, first: int = 0) -> torch.Tensor:
         """Physical slot per selection with round-robin load splitting:
-        selection (t, j) goes to replica (t*k + j) mod n_replicas.
-        expert_ids: (T, k) logical -> (T, k) slots (int32)."""
+        selection (t, j) goes to replica (t*k + j) mod n_replicas, t the
+        global index of the token (``first`` that of row 0: a batch
+        block's offset).  expert_ids: (T, k) logical -> (T, k) slots
+        (int32)."""
         t, k = expert_ids.shape
         dev = expert_ids.device
         ids = expert_ids.long()
-        sel = (torch.arange(t, device=dev)[:, None] * k
+        sel = ((first + torch.arange(t, device=dev))[:, None] * k
                + torch.arange(k, device=dev)[None, :])
         ridx = sel % torch.clamp(self.replica_count.long()[ids], min=1)
         return self.replica_slots[ids, ridx].to(torch.int32)
@@ -206,18 +219,33 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if placement is None:
         placement = ExpertPlacement.identity(e, device=dev)
 
+    # imported here: the distributed package imports this module
+    from repro_torch.distributed.context import current_ctx, sum_blocks
+    ctx = current_ctx()
+    blocks = ctx is not None and ctx.batch_blocks
+    if blocks and dispatch_mode == "fused":
+        raise ValueError("the fused dispatch numbers tokens within its call; under batch "
+                         "blocks take 'dense' or 'gather'")
+    n_all = t * ctx.dp if blocks else t                            # the global tokens
+
     logits = xf.float() @ params["w_router"]
     probs = router_probs(logits)                                   # logical space
     ns = placement.num_slots                                       # S = E + R
-    cap = _capacity(cfg, t)
+    cap = _capacity(cfg, n_all)
     if dispatch_mode == "fused":
         gates, expert_ids, slot_idx, pos = route_replicated(
             logits, k, placement.replica_slots, placement.replica_count, ns)
         keep = pos < cap
     else:
         gates, expert_ids = top_k_gating(probs, k)                 # (T,k) logical
-        slot_idx = placement.dispatch_slots(expert_ids)            # physical slots
+        first = ctx.mesh.axis_index(ctx.batch_axes) * t if blocks else 0
+        slot_idx = placement.dispatch_slots(expert_ids, first)     # physical slots
         pos, keep = _dispatch_tables(slot_idx, ns, cap)
+        if blocks:
+            # kept by the global rule; the expert FFN is row by row, so the
+            # block's kept tokens take buffers of their own, at most t a slot
+            keep = pos + _earlier_blocks(slot_idx, ns, ctx) < cap
+            cap = min(cap, t)
     gates = gates.to(x.dtype)
 
     if dispatch_mode == "dense":
@@ -246,20 +274,54 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.num_shared_experts > 0:
         y = y + ffn_apply(params["shared"], xf)
 
-    # ---- router aux (always fp32) -------------------------------------------
-    ids_flat = expert_ids.reshape(-1).long()
-    me = probs.mean(0)                                             # (E,) mean prob, logical
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add(
-        0, ids_flat, torch.ones_like(ids_flat, dtype=torch.float32)) / (t * k)
-    aux = {
-        "load_balance_loss": e * torch.sum(me * ce),
-        "router_z_loss": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
-    }
+    aux = router_aux(probs, logits, expert_ids, k, ctx, return_stats)
     if return_stats:
-        aux["expert_counts"] = torch.bincount(ids_flat, minlength=e).to(torch.int32)
         aux["expert_ids"] = expert_ids.reshape(b, s, k).to(torch.int32)
-        aux["dropped_frac"] = 1.0 - keep.float().mean()
+        aux["dropped_frac"] = 1.0 - (sum_blocks(keep.float().sum(), ctx) / (n_all * k)
+                                     if blocks else keep.float().mean())
     return y.reshape(b, s, d), aux
+
+
+def router_aux(probs: torch.Tensor, logits: torch.Tensor, expert_ids: torch.Tensor, k: int,
+               ctx=None, counts: bool = False) -> dict:
+    """The router losses (always f32), and with ``counts`` the per-expert
+    selection counts, over the global tokens: under a context with batch
+    blocks the probability sums, the counts and the squared
+    log-normalizers are summed over the blocks (``context.sum_blocks``)
+    before the products; otherwise means over this call's tokens."""
+    from repro_torch.distributed.context import sum_blocks
+    t, e = probs.shape
+    ids_flat = expert_ids.reshape(-1).long()
+    count = torch.zeros(e, dtype=torch.int32, device=probs.device).index_add(
+        0, ids_flat, torch.ones_like(ids_flat, dtype=torch.int32))
+    lse2 = torch.square(torch.logsumexp(logits, dim=-1))
+    if ctx is not None and ctx.batch_blocks:
+        # one all-reduce for the three sums, in f64 (the counts stay exact)
+        n_all = t * ctx.dp
+        sums = sum_blocks(torch.cat([probs.sum(0), torch.sum(lse2)[None],
+                                     count.float()]).double(), ctx)
+        me, z = (sums[:e] / n_all).float(), (sums[e] / n_all).float()
+        count = sums[e + 1:].round().to(torch.int32)
+    else:
+        n_all = t
+        me, z = probs.mean(0), torch.mean(lse2)
+    aux = {"load_balance_loss": e * torch.sum(me * (count.float() / (n_all * k))),
+           "router_z_loss": z}
+    if counts:
+        aux["expert_counts"] = count
+    return aux
+
+
+def _earlier_blocks(slot_idx: torch.Tensor, ns: int, ctx) -> torch.Tensor:
+    """Under batch blocks: for each selection, the count of selections of
+    its slot in the blocks before this rank's (the global order is block
+    after block, each token-major)."""
+    flat = slot_idx.reshape(-1).long()
+    counts = torch.zeros(ns, dtype=torch.int32, device=flat.device).index_add(
+        0, flat, torch.ones_like(flat, dtype=torch.int32))
+    every = ctx.mesh.all_gather(counts[None], ctx.batch_axes, dim=0)     # (dp, S)
+    before = every[:ctx.mesh.axis_index(ctx.batch_axes)].sum(0, dtype=torch.int32)
+    return before[slot_idx.long()]
 
 
 def permute_expert_weights(params: dict, old: ExpertPlacement,

@@ -25,6 +25,14 @@ Bodies:
     rule); otherwise "a2a" runs the gather body.
   * "auto": token-gather when its bytes are below the weight gather's.
 
+Under batch blocks (``ShardCtx.batch_blocks``) ``x`` is this rank's block
+of the global batch, which the region takes as it is.  The router
+statistics are the global ones, as the reference computes them on the
+global tokens: the per-expert probability sums, selection counts and
+squared log-normalizers are summed over the batch blocks
+(``context.sum_blocks``) before ``E * sum(me * ce)``, and a selection's
+replica is chosen by its global token index.
+
 The placement maps S = E + R physical slots to logical experts; slot s
 lives on EP rank s // (S / tp).  The per-rank combine is the fixed order
 of ``models/moe.py``'s: each token gathers its k gated rows (a
@@ -43,7 +51,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ffn_apply
 from repro_torch.models.moe import (ExpertPlacement, _capacity, _combine,
                                     _dispatch_tables, _expert_ffn, _token_table,
-                                    router_probs, top_k_gating)
+                                    router_aux, router_probs, top_k_gating)
 
 
 def _fsdp_gather(mesh, w: torch.Tensor, axis: int, sharded: bool) -> torch.Tensor:
@@ -73,9 +81,9 @@ def _use_token_gather(cfg: ModelConfig, ctx: ShardCtx, t_loc: int,
 def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
                       placement: Optional[ExpertPlacement], ctx: ShardCtx,
                       return_stats: bool = False):
-    """x: (B, S, d), whole on every rank.  Returns (y, aux) like
-    ``moe_apply``; ``dropped_frac`` is the constant 0.0, as in the
-    reference."""
+    """x: (B, S, d), whole on every rank (under batch blocks, the rank's
+    block).  Returns (y, aux) like ``moe_apply``; ``dropped_frac`` is the
+    constant 0.0, as in the reference."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.moe_top_k
     mesh, tp = ctx.mesh, ctx.tp
@@ -88,7 +96,8 @@ def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     bdim = ctx.dp
     b_ax = batch_axis(ctx, b)
-    t_loc = (b // bdim if b_ax else b) * s
+    b_loc = b if ctx.batch_blocks else (b // bdim if b_ax else b)   # rows a region body sees
+    t_loc = b_loc * s
     f_sharded = divides(cfg.moe_d_ff, int(mesh.shape["data"]))
     token_gather = b_ax is not None and _use_token_gather(cfg, ctx, t_loc, f_sharded)
     t_disp = t_loc * (bdim if token_gather else 1)   # tokens seen by dispatch
@@ -99,7 +108,8 @@ def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
     logits = xf.float() @ params["w_router"]
     probs = router_probs(logits)
     gates, expert_ids = top_k_gating(probs, k)
-    slot_idx = placement.dispatch_slots(expert_ids)            # replica-split slots
+    first = mesh.axis_index(ctx.batch_axes) * b * s if ctx.batch_blocks else 0
+    slot_idx = placement.dispatch_slots(expert_ids, first)     # replica-split slots
     gates = gates.to(x.dtype)
 
     wg_spec = P("model", None, "data" if f_sharded else None)
@@ -180,9 +190,8 @@ def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
             y = mesh.psum(y, "model")
         return y.reshape(xb.shape)
 
-    t_shard = (b // bdim if b_ax else b) * s
     fn = body_a2a if (ctx.ep_mode == "a2a" and not token_gather
-                      and divides(t_shard, tp)) else body
+                      and divides(t_loc, tp)) else body
     tok = P(b_ax, None, None)
     y = shard_map(fn, mesh, in_specs=(tok, tok, tok, wg_spec, wg_spec, wd_spec),
                   out_specs=tok)(x, slot_idx.reshape(b, s, k), gates.reshape(b, s, k),
@@ -192,16 +201,8 @@ def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.num_shared_experts > 0:
         y = y + ffn_apply(params["shared"], xf)
 
-    ids_flat = expert_ids.reshape(-1).long()
-    me = probs.mean(0)
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add(
-        0, ids_flat, torch.ones_like(ids_flat, dtype=torch.float32)) / (b * s * k)
-    aux = {
-        "load_balance_loss": e * torch.sum(me * ce),
-        "router_z_loss": torch.mean(torch.square(torch.logsumexp(logits, dim=-1))),
-    }
+    aux = router_aux(probs, logits, expert_ids, k, ctx, return_stats)
     if return_stats:
-        aux["expert_counts"] = torch.bincount(ids_flat, minlength=e).to(torch.int32)
         aux["expert_ids"] = expert_ids.reshape(b, s, k).to(torch.int32)
         aux["dropped_frac"] = torch.zeros((), dtype=torch.float32, device=dev)
     return y.reshape(b, s, d), aux

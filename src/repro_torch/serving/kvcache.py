@@ -19,6 +19,7 @@ refcounts, lengths and free lists stay in numpy on the host.
 from __future__ import annotations
 
 import heapq
+import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -208,6 +209,24 @@ class PagedKVCache:
     @property
     def blocks_used(self) -> int:
         return self.usable_blocks - len(self._free_blocks)
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free_slots)
+
+    # --- metrics (Alg. 1 signal) --------------------------------------------------
+    def usage(self) -> float:
+        """True block occupancy: distinct pages held / pool size.  Shared
+        pages count once."""
+        return self.blocks_used / max(self.usable_blocks, 1)
+
+    def kv_bytes_used(self) -> int:
+        """The bytes of the pages held, every layer's K and V (and an int8
+        pool's per-page scales)."""
+        per_block = sum(math.prod(p.shape[2:]) * p.element_size() * p.shape[0]
+                        for n, p in self.pages.items() if not n.endswith("_scale"))
+        scale_b = sum(4 * p.shape[0] for n, p in self.pages.items() if n.endswith("_scale"))
+        return self.blocks_used * (per_block + scale_b)
 
     # --- allocation -------------------------------------------------------------
     def alloc(self, plen: int,

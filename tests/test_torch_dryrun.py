@@ -13,6 +13,8 @@ against the reference's, on the CPU, with shapes only.
   patched to a directly built ``Mesh``, whose Auto axes the reference's
   MoE runs under on this jax), against the port's dry-run records:
   XLA's argument and output bytes, exactly;
+* batch blocks: a smoke qwen3 cell's FLOPs a rank on both production
+  meshes, at most 2 / dp of the whole batch's (``--batch-whole``);
 * the collective bytes of the expert gather over "data" on a (2, 2) fake
   group, against what ``moe_sharded._use_token_gather`` states;
 * the fake group: ``make_mesh``, ``train()`` and ``serve()`` refuse it, and
@@ -231,7 +233,8 @@ _REFERENCE = """
     out = {{}}
     for arch, cell, mp, depth in {cells}:
         rec = D.run_cell(arch, cell, mp, Path(sys.argv[2]), depth=depth)
-        out[f"{{arch}}|{{cell}}|{{mp}}|{{depth}}"] = rec["memory_analysis"]
+        out[f"{{arch}}|{{cell}}|{{mp}}|{{depth}}"] = dict(rec["memory_analysis"],
+                                                         flops=rec["hlo_flops_per_dev"])
     Path(sys.argv[1]).write_text(json.dumps(out))
     print("REFERENCE_OK")
 """
@@ -244,9 +247,19 @@ _PORT = """
     for arch, cell, mp, depth in {cells}:
         rec = run_cell(arch, cell, mp, Path(sys.argv[2]), depth=depth)
         out[f"{{arch}}|{{cell}}|{{mp}}|{{depth}}"] = rec
+    for cell, mp, whole in {smoke}:
+        rec = run_cell("qwen3-30b-a3b", cell, mp, Path(sys.argv[2]) / "smoke", smoke=True,
+                       batch_whole=whole)
+        out[f"smoke|{{cell}}|{{mp}}|{{whole}}"] = {{k: rec[k] for k in ("flops_per_dev",
+                                                                   "batch_whole")}}
     Path(sys.argv[1]).write_text(json.dumps(out))
     print("PORT_OK")
 """
+
+# the smoke qwen3 cells on both production meshes, with batch blocks and
+# with the whole batch on every rank
+SMOKE_CELLS = [(c.name, mp, whole) for c in dryrun_cells("qwen3-30b-a3b")
+               for mp in (False, True) for whole in (False, True)]
 
 
 def _run(script: str, *args) -> subprocess.Popen:
@@ -265,7 +278,8 @@ def _oracle_runs(tmp_path_factory):
     that they run beside the others."""
     d = tmp_path_factory.mktemp("dryrun")
     cells = repr(list(ORACLE))
-    procs = {tag: _run(textwrap.dedent(body.format(cells=cells)), str(d / f"{tag}.json"),
+    procs = {tag: _run(textwrap.dedent(body.format(cells=cells, smoke=repr(SMOKE_CELLS))),
+                       str(d / f"{tag}.json"),
                        str(d / tag))
              for tag, body in (("REFERENCE", _REFERENCE), ("PORT", _PORT))}
     yield d, procs
@@ -384,3 +398,31 @@ def test_dry_run_bytes_equal_compiled_reference(oracle, key):
     assert port["n_devices"] == (512 if key[2] else 256)
     assert mem["peak_size_in_bytes"] >= mem["argument_size_in_bytes"]
     assert port["flops_per_dev"] > 0 and port["collective_bytes_per_dev"] > 0
+
+
+@pytest.mark.parametrize("multi_pod", [False, True], ids=["16x16", "2x16x16"])
+@pytest.mark.parametrize("cell", sorted({c for c, _, _ in SMOKE_CELLS}))
+def test_batch_blocks_cut_flops_by_the_batch_split(oracle, cell, multi_pod):
+    """With the batch stored in blocks over the batch axes, a rank's FLOPs
+    for a smoke qwen3 cell are at most 2 / dp of those with the whole batch
+    on every rank (``--batch-whole``)."""
+    port = oracle["PORT"]
+    blocks, whole = (port[f"smoke|{cell}|{multi_pod}|{w}"] for w in (False, True))
+    assert (blocks["batch_whole"], whole["batch_whole"]) == (False, True)
+    dp = 32 if multi_pod else 16
+    assert 0 < blocks["flops_per_dev"] <= 2 / dp * whole["flops_per_dev"]
+
+
+@pytest.mark.parametrize("key", list(ORACLE), ids=lambda k: f"{k[0]}-{k[1]}-{'2x16x16' if k[2] else '16x16'}")
+def test_dry_run_flops_against_compiled_reference(oracle, key, capsys):
+    """Per rank, the port's FLOPs against XLA's compiled program for the
+    same cell (printed; the port computes the model axis's work whole on
+    every rank, so it never falls below XLA's count), with the batch in
+    blocks over the batch axes."""
+    name = "|".join(map(str, key))
+    ref, port = oracle["REFERENCE"][name], oracle["PORT"][name]
+    ratio = port["flops_per_dev"] / ref["flops"]
+    with capsys.disabled():
+        print(f"\n[dryrun flops] {name}: port {port['flops_per_dev']:.4e} XLA {ref['flops']:.4e} "
+              f"ratio {ratio:.3f}")
+    assert ratio >= 1.0

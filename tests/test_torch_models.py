@@ -326,6 +326,44 @@ def test_prefill_and_two_paged_decode_steps(cfgs, weights, quant):
         tokens = np.asarray(jnp.argmax(lj, -1), np.int32)[:, None]
 
 
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_cache_usage_matches_reference(cfgs, quant):
+    """``num_free``, ``usage()`` and ``kv_bytes_used()`` of the paged cache
+    equal the reference's through an alloc, a shared-prefix alloc, appends
+    across a page boundary and frees."""
+    jc, tc = cfgs
+    kvj = JaxPagedKVCache(jc, 3, 64, block_size=16, quantize=quant)
+    kvt = PagedKVCache(tc, 3, 64, block_size=16, quantize=quant, device="cpu")
+    prompt = list(range(1, 41))
+
+    def same():
+        assert kvt.num_free == kvj.num_free
+        assert kvt.usage() == kvj.usage()
+        assert kvt.kv_bytes_used() == kvj.kv_bytes_used()
+
+    same()
+    slots = []
+    for plen, toks in ((40, prompt), (36, prompt[:32] + [99, 98, 97, 96]), (17, None)):
+        sj, st = kvj.alloc(plen, toks), kvt.alloc(plen, toks)
+        assert sj == st
+        kvj.slot_len[sj] = kvt.slot_len[st] = plen
+        slots.append(st)
+        same()
+    assert kvt.shared_hits == kvj.shared_hits > 0
+    for _ in range(16):                                 # slot 2 crosses into a new page
+        for s in slots:
+            kvj.prepare_append(s)
+            kvt.prepare_append(s)
+        kvj.slot_len[slots] += 1
+        kvt.slot_len[slots] += 1
+        same()
+    for s in slots:
+        kvj.free(s)
+        kvt.free(s)
+        same()
+    assert kvt.kv_bytes_used() == 0 and kvt.num_free == 3
+
+
 # --- whole model: slot cache and slot decode ----------------------------------------------
 
 def test_batch_axes_and_write_slot_match_reference(cfgs):
