@@ -147,7 +147,12 @@
    the runs; one teacher-forced decode step's logits within the bf16
    tolerance on every row that both paths routed to the same experts;
    each MoE layer's input routed by ``moe_apply_sharded`` as by
-   ``moe_apply``; the collectives a decode step counted; the bf16 token
+   ``moe_apply``; the collectives a decode step counted by kind, every
+   layer computing on its "model" blocks (on one rank the whole tensors,
+   every collective still run): a teacher-forced step's all-reduces must
+   be one for the embedding, four a layer (``wo`` and the flash-decode
+   combine) and two a MoE layer, which must reject a step whose ``wo``
+   output skips its reduce; the bf16 token
    agreement of the two paths printed (the reference's sequence-sharded
    decode rounds otherwise than the plain one), then the ctx path run
    again with the plain path's attention decode, its MoE, and both
@@ -168,9 +173,12 @@
    train_4k and decode_32k at depth 4 on 16 x 16 with the batch in blocks
    over "data" (each rank computes its rows) and with ``--batch-whole``:
    each must exit 0, and each pair's FLOPs a rank must fall at least 8x
-   with the batch in blocks.  T1c and the ctx phase's decode steps run
-   with their batch stored in blocks, so each prints its collectives a
-   step, and the paged engine runs print the pool's ``usage()`` and
+   with the batch in blocks (7x in decode_32k, where the experts' capacity
+   of at least 8 rows a slot halves only); qwen3 train_4k's at depth 4 must
+   be at least 4x below its 2.3905e14 with every layer whole over "model".  T1c and
+   the ctx phase's decode steps run with their batch stored in blocks and
+   their layers on their "model" blocks, so each prints its collectives a
+   step by kind, and the paged engine runs print the pool's ``usage()`` and
    ``kv_bytes_used()`` after the drain, which must be 0.
 12. Prints the card's name and power limit, one JSON line listing the
    kernels (with the cluster, families, variants, ssm, ctx and train
@@ -2740,8 +2748,9 @@ def _train_t1c(torch) -> None:
         recs = _timed_steps(torch, fn, carry, (stored_batch(i) for i in range(T1_STEPS)),
                             label)
     med = _step_summary(torch, recs, T1_SHAPE[0] * T1_SHAPE[1], label, T1_STEPS - 2)
-    log(f"train[{label}]: ctx path (the batch stored in blocks over \"data\"): collectives "
-        f"a step {({k: v / T1_STEPS for k, v in coll.counts.items()})}")
+    log(f"train[{label}]: ctx path (the batch stored in blocks over \"data\", every layer "
+        f"on its \"model\" blocks): collectives a step by kind "
+        f"{_by_kind(coll.counts, T1_STEPS)}")
     t1 = T1_RESULT.get("T1")
     if t1:
         log(f"train[{label}]: ctx path {med['ms']:.3f} ms a step (forward+backward "
@@ -2959,6 +2968,20 @@ def _ctx_mesh(torch):
     return mesh
 
 
+_KIND = {"all_reduce": "all-reduce", "all_gather_single": "all-gather",
+         "all_gather_into_tensor": "all-gather", "reduce_scatter_single": "reduce-scatter",
+         "reduce_scatter_tensor": "reduce-scatter", "all_to_all_single": "all-to-all"}
+
+
+def _by_kind(counts: dict, per: int = 1) -> dict:
+    """Collective calls by kind (all-gather, all-reduce, reduce-scatter,
+    all-to-all), divided by ``per``."""
+    out = {}
+    for name, n in counts.items():
+        out[_KIND[name]] = out.get(_KIND[name], 0) + n
+    return {k: v / per if per > 1 else v for k, v in sorted(out.items())}
+
+
 class _CollectiveCount:
     """Counts the ``torch.distributed`` collectives called while active."""
 
@@ -3041,7 +3064,7 @@ def _ctx_serve(torch, cfg, params, ctx, prompts, label: str,
     del cache
     out = dict(first=first, tokens=torch.stack(toks), ms=ms, snapshot=snapshot,
                seq=p + steps,
-               collectives={k: v // steps for k, v in coll.counts.items()},
+               collectives=_by_kind({k: v // steps for k, v in coll.counts.items()}),
                peak=torch.cuda.max_memory_allocated() / 2**30, prefill_ms=prefill_ms)
     log(f"ctx[{label}]: prefill step {prefill_ms:.3f} ms ({b} x {p}), decode ms a step "
         f"median {statistics.median(ms[2:]):.3f} (min {min(ms[2:]):.3f}, max "
@@ -3179,6 +3202,51 @@ def _ctx_compare(torch, cfg, params, label: str, base, other, faults: dict,
     return runs
 
 
+def _decode_all_reduces(cfg, blocks: bool) -> int:
+    """The all-reduces one ctx decode step of an attention stack issues
+    (none is skipped on one rank): the embedding's sum over "model"; per
+    layer ``wo``'s partial sums and the flash-decode combine's pmax and two
+    psums; per MoE layer its expert combine and, with the batch in blocks
+    (``blocks``), its router statistics; per dense FFN ``w_down``'s
+    partial sums."""
+    moe = cfg.num_moe_layers() if cfg.is_moe else 0
+    return 1 + 4 * cfg.num_layers + (2 if blocks else 1) * moe + (cfg.num_layers - moe)
+
+
+def _wo_without_reduce():
+    """Fault: a decode's ``wo`` on the rank's heads, its partial sums not
+    reduced over "model" (on one rank the same values, one all-reduce a
+    layer fewer)."""
+    from repro_torch.models import attention as A
+    return mock.patch.object(A, "reduce_from_model", lambda x, ctx: x)
+
+
+def _decode_collective_gate(torch, cfg, params, ctx, run: dict, label: str) -> dict:
+    """The all-reduces of the served ctx decode steps (batch in blocks)
+    and of one teacher-forced ctx decode step (the batch whole) must be
+    ``_decode_all_reduces``'s, which must reject a step whose ``wo`` output
+    skips its reduce."""
+    served, want, got = run["collectives"].get("all-reduce"), _decode_all_reduces(cfg, False), {}
+    if served != _decode_all_reduces(cfg, True):
+        raise AssertionError(f"ctx[{label}]: {served} all-reduces a served decode step, "
+                             f"expected {_decode_all_reduces(cfg, True)}")
+    for name, fault in (("ctx", None), ("fault: wo without its reduce", _wo_without_reduce)):
+        with (fault() if fault is not None else contextlib.nullcontext()), \
+                _CollectiveCount() as coll:
+            _ctx_step_logits(torch, cfg, params, ctx, run)
+        got[name] = _by_kind(coll.counts)
+    log(f"ctx[{label}]: all-reduces a served decode step {served} (expected "
+        f"{_decode_all_reduces(cfg, True)}: embedding 1, per layer wo 1 + flash-decode "
+        f"combine 3, per MoE layer 2, per dense FFN 1); a teacher-forced step, batch whole: "
+        f"collectives by kind {got['ctx']}, all-reduces expected {want} (no router "
+        f"statistics sum); planted fault {got['fault: wo without its reduce']}")
+    if got["ctx"].get("all-reduce") != want or \
+            got["fault: wo without its reduce"].get("all-reduce") == want:
+        raise AssertionError(f"ctx[{label}]: decode all-reduces {got}, expected {want} (and "
+                             f"not with the fault)")
+    return got["ctx"]
+
+
 def _no_row_write():
     """Fault: the sequence-sharded decodes attend without writing the new
     row into their chunk (it reaches the cache only after the region)."""
@@ -3267,6 +3335,8 @@ def ctx_phase(torch) -> dict:
         params = _family_params(torch, cfg, label)
         K.reset_launch_counts()
         served = _ctx_compare(torch, cfg, params, label, *paths, faults, bf16_logits)
+        if arch == ARCH and dtype == "float32":
+            _decode_collective_gate(torch, cfg, params, paths[1][1], served["ctx"], label)
         if arch == ARCH and dtype == "bfloat16":
             _ctx_attribution(torch, cfg, params, label, paths[1][1], served["plain"])
         runs[label] = {fn.__name__: fn.launches for fn in K.KERNELS}
@@ -3357,9 +3427,19 @@ DRYRUN_CELLS = (("qwen3-30b-a3b", "decode_32k", False, 0, False),
                 ("qwen3-30b-a3b", "train_4k", True, 0, False),
                 ("qwen2-72b", "train_4k", False, 0, False))
 # cells run twice at depth 4 on 16 x 16: the batch in blocks over "data"
-# and whole on every rank; a rank's FLOPs must fall at least DRYRUN_SPLIT
-DRYRUN_PAIRS = (("qwen3-30b-a3b", "train_4k"), ("qwen3-30b-a3b", "decode_32k"))
-DRYRUN_SPLIT = 8.0
+# and whole on every rank, and the least factor a rank's FLOPs must fall by:
+# 8 (half of dp = 16), or in qwen3's decode 7, because there the MoE
+# capacity's floor of 8 rows a slot (both packages) gives a rank's 8 tokens
+# half the expert rows of the whole batch's 128, not 1/16: the dense work
+# falling 16x and the experts' 2x predict 7.58x (PERF.md §6), and an
+# expert FFN on the whole batch's rows (4.74x) or dense work falling 8x
+# (5.42x) stays below 7
+DRYRUN_PAIRS = (("qwen3-30b-a3b", "train_4k", 8.0), ("qwen3-30b-a3b", "decode_32k", 7.0))
+# qwen3 train_4k at depth 4 on 16 x 16, batch in blocks: FLOPs a rank with
+# every layer whole over "model" (the dry run's record before the layers
+# computed on their "model" blocks), and the least factor they must fall by
+DRYRUN_WHOLE_MODEL_FLOPS = 2.3905e14
+DRYRUN_MODEL_AXIS_FALL = 4.0
 
 
 def _dryrun_name(arch, cell, multi_pod, depth, whole) -> str:
@@ -3374,13 +3454,15 @@ def dryrun_phase(torch) -> None:
     each of DRYRUN_PAIRS at depth 4 with the batch in blocks and with
     ``--batch-whole``.  Each must exit 0; its record's per-rank argument
     bytes, peak, FLOPs and collective bytes are printed beside the card's
-    memory; each pair's FLOPs a rank must fall at least DRYRUN_SPLIT times
-    with the batch in blocks."""
+    memory; each pair's FLOPs a rank must fall at least its factor in
+    DRYRUN_PAIRS with the batch in blocks, and qwen3
+    train_4k's at depth 4 at least DRYRUN_MODEL_AXIS_FALL times below
+    DRYRUN_WHOLE_MODEL_FLOPS."""
     t0 = time.perf_counter()
     out = ROOT / "build" / "dryrun"
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     card = torch.cuda.get_device_properties(0).total_memory
-    runs = list(DRYRUN_CELLS) + [(a, c, False, 4, w) for a, c in DRYRUN_PAIRS
+    runs = list(DRYRUN_CELLS) + [(a, c, False, 4, w) for a, c, _ in DRYRUN_PAIRS
                                  for w in (False, True)]
     procs = []
     for arch, cell, multi_pod, depth, whole in runs:
@@ -3412,19 +3494,28 @@ def dryrun_phase(torch) -> None:
             f"{card} B), {rec['flops_per_dev']:.4e} FLOPs, collective wire bytes "
             f"{rec['collective_bytes_per_dev']:.6e} ({rec['collectives']['counts']}), "
             f"dominant {rec['dominant']}")
-    for arch, cell in DRYRUN_PAIRS:
+    for arch, cell, gate in DRYRUN_PAIRS:
         blocks, whole = (recs.get((arch, cell, False, 4, w)) for w in (False, True))
         if blocks is None or whole is None:
             continue
-        fell = whole["flops_per_dev"] / max(blocks["flops_per_dev"], 1.0)
+        fell = whole["flops_per_dev"] / max(blocks["flops_per_dev"], 1)
         peak = (whole["memory_analysis"]["peak_size_in_bytes"]
                 / max(blocks["memory_analysis"]["peak_size_in_bytes"], 1))
         log(f"dryrun[{arch} {cell} 16x16 depth 4]: the batch in blocks over \"data\" against "
             f"whole on every rank: FLOPs a rank {blocks['flops_per_dev']:.4e} against "
-            f"{whole['flops_per_dev']:.4e} ({fell:.2f}x fewer, gate {DRYRUN_SPLIT}x), peak "
+            f"{whole['flops_per_dev']:.4e} ({fell:.2f}x fewer, gate {gate}x), peak "
             f"{peak:.2f}x lower")
-        if not fell >= DRYRUN_SPLIT:
-            failed.append((f"{arch} {cell}: FLOPs fell {fell:.2f}x", None))
+        if not fell >= gate:
+            failed.append((f"{arch} {cell}: batch blocks cut FLOPs {fell:.2f}x", None))
+    blocks = recs.get(("qwen3-30b-a3b", "train_4k", False, 4, False))
+    if blocks is not None:
+        fell = DRYRUN_WHOLE_MODEL_FLOPS / max(blocks["flops_per_dev"], 1.0)
+        log(f"dryrun[qwen3-30b-a3b train_4k 16x16 depth 4]: the model axis: FLOPs a rank "
+            f"{blocks['flops_per_dev']:.4e} against {DRYRUN_WHOLE_MODEL_FLOPS:.4e} with every "
+            f"layer whole over \"model\" ({fell:.2f}x fewer, gate {DRYRUN_MODEL_AXIS_FALL}x)")
+        if not fell >= DRYRUN_MODEL_AXIS_FALL:
+            failed.append((f"qwen3-30b-a3b train_4k: the model axis cut FLOPs {fell:.2f}x",
+                           None))
     log(f"dryrun phase: {time.perf_counter() - t0:.1f} s")
     if failed:
         raise AssertionError(f"dryrun phase: {failed}")

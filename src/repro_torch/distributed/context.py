@@ -60,6 +60,31 @@ through, since every rank holds that sum and its true gradient.  A stored
 block that enters a region as it is already gets its true gradient there
 (the body computes on the batch block, and the shares are summed over the
 ranks that hold the same block), so it takes no further sum.
+
+The model axis (``ShardCtx.tp``, Megatron-style tensor parallelism, as the
+reference's GSPMD partitions its dense layers): under a context every layer
+computes on the "model" block of each weight its spec cuts over that axis
+(``sharding.tp_weight``) and keeps a weight the spec leaves whole over it
+whole.  The residual stream between blocks is the rank's block of the
+sequence when ``ShardCtx.seq_blocks`` (set by ``models/model.py`` where the
+reference's ``_seq_constraint`` pins it), else whole over "model".  Four
+functions move activations in and out of a layer's blocks
+(``copy_to_model``, ``reduce_from_model``, ``gather_seq``,
+``scatter_seq``), and two more make a block whole or cut it where a
+replicated computation (a region, a layer that keeps its weights whole)
+takes it (``whole_of``, ``block_of``).  Inside a layer, between its entry
+and its exit, a value held whole over "model" carries a partial gradient
+(this rank's use of it); the entry sums it (``copy_to_model``'s backward,
+or the reduce-scatter of ``gather_seq``).  Three gradient rules follow:
+
+  * a weight a layer computes on by its "model" block takes its gradient
+    as it is (the block's, as a rank with that block alone would have it);
+  * a weight kept whole over "model" but used on the rank's sequence block
+    or head block (norms, ``bk``/``bv``, replicated ``wk``/``wv``, mamba's
+    ``w_in`` and ``conv_w``) enters through ``copy_to_model``, whose
+    backward sums its gradient over "model";
+  * the vocab-parallel loss (``launch/steps.py``) passes a gradient only to
+    the rank's vocab block of the logits.
 """
 from __future__ import annotations
 
@@ -309,6 +334,81 @@ class _AllToAll(torch.autograd.Function):
         out = torch.empty_like(g)
         dist.all_to_all_single(out, g, group=ctx.group)
         return out, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; the gradient summed over ``group`` (Megatron's f)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed as dist
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    """A sum over ``group`` whose gradient passes through (Megatron's g):
+    every member holds the sum and its true gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+        y = x.contiguous().clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """Reduce-scatter along ``dim`` forward, all-gather backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, order):
+        ctx.group, ctx.dim, ctx.order = group, dim, order
+        return _scatter_sum(x, group, dim, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.group, ctx.dim, ctx.order), None, None, None
+
+
+class _WholeOf(torch.autograd.Function):
+    """The blocks along ``dim`` gathered whole; the whole's gradient, true
+    on every member, goes back as this member's block of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, order, index):
+        ctx.dim, ctx.start, ctx.size = dim, index * x.shape[dim], x.shape[dim]
+        return _gather(x, group, dim, order)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.start, ctx.size).contiguous(), None, None, None, None
+
+
+class _BlockOf(torch.autograd.Function):
+    """This member's block of a whole tensor along ``dim``; the blocks'
+    gradients are gathered whole, so the whole's is true on every member."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim, order, index):
+        n = len(order)
+        ctx.group, ctx.dim, ctx.order = group, dim, order
+        size = x.shape[dim] // n
+        return x.narrow(dim, index * size, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g.contiguous(), ctx.group, ctx.dim, ctx.order), None, None, None, None
 
 
 # ----------------------------------------------------------------------------- regions
@@ -600,14 +700,25 @@ def _sum_rows(g: torch.Tensor, mesh: Mesh, spec, rows: Tuple[str, ...]) -> torch
     return out.contiguous()
 
 
-def gather(x):
+def _drop_axes(entry, drop: Tuple[str, ...]):
+    axes = tuple(a for a in _as_axes(entry) if a not in drop)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def gather(x, keep: Tuple[str, ...] = ()):
     """``x`` whole: a stored tensor gathered along every split dimension
     (an all-gather per split, even over one rank), anything else as it is.
-    For a weight: under batch blocks its gradient sums the ranks' partials
-    (``_Gather``)."""
+    With ``keep`` (the model axis), the dimensions split over those axes
+    stay this rank's block and only the others are gathered (FSDP's "data"
+    gather of a tensor-parallel weight).  For a weight: under batch blocks
+    its gradient sums the ranks' partials (``_Gather``)."""
     if not isinstance(x, Stored):
         return x
-    return _Gather.apply(x.local, x.mesh, x.spec, x.block(), _row_axes())
+    if not keep:
+        return _Gather.apply(x.local, x.mesh, x.spec, x.block(), _row_axes())
+    spec = tuple(_drop_axes(e, keep) for e in x.spec)
+    shape = tuple(n * x.mesh.axis_size(e) for n, e in zip(x.local.shape, spec))
+    return _Gather.apply(x.local, x.mesh, spec, _block(x.mesh, shape, spec), _row_axes())
 
 
 _WHOLE_CACHE = ("a whole (unstored) cache cannot serve batch blocks: store it by its "
@@ -696,6 +807,9 @@ class ShardCtx:
     batch_blocks: bool = False                # activations hold this rank's block of
                                               # the global batch (see the module
                                               # docstring); the steps set it
+    seq_blocks: bool = False                  # the residual stream holds this rank's
+                                              # block of the sequence over "model";
+                                              # models/model.py sets it
 
     @property
     def dp(self) -> int:
@@ -737,19 +851,6 @@ def batch_axis(ctx: ShardCtx, b: int):
     return ctx.batch_axes if ctx.batch_blocks or divides(b, ctx.dp) else None
 
 
-class _SumBlocks(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        import torch.distributed as dist
-        y = x.contiguous().clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def sum_blocks(x: torch.Tensor, ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """``x`` summed over the batch blocks (an all-reduce over the batch
     axes) under batch blocks, else ``x``: the global sum, held by every
@@ -758,7 +859,7 @@ def sum_blocks(x: torch.Tensor, ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     ctx = ctx if ctx is not None else current_ctx()
     if ctx is None or not ctx.batch_blocks:
         return x
-    return _SumBlocks.apply(x, ctx.mesh.group(ctx.batch_axes))
+    return _Reduce.apply(x, ctx.mesh.group(ctx.batch_axes))
 
 
 def sum_partials(grads: Sequence[torch.Tensor], ctx: ShardCtx) -> list:
@@ -777,3 +878,52 @@ def sum_partials(grads: Sequence[torch.Tensor], ctx: ShardCtx) -> list:
         for i, part in zip(idx, flat.split([grads[i].numel() for i in idx])):
             out[i] = part.view_as(grads[i])
     return out
+
+
+# ----------------------------------------------------------------------------- the model axis
+
+def _model(ctx: ShardCtx):
+    """(group, block order, this rank's index) of the model axis."""
+    ax = ctx.model_axis
+    return ctx.mesh.group(ax), ctx.mesh._member_order((ax,)), ctx.mesh.axis_index(ax)
+
+
+def copy_to_model(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over the model axis: the entry of
+    a value held whole over "model" into a layer that uses it per block."""
+    return _CopyToModel.apply(x, ctx.mesh.group(ctx.model_axis))
+
+
+def reduce_from_model(x: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over the model axis; the
+    gradient passes through."""
+    return _Reduce.apply(x, ctx.mesh.group(ctx.model_axis))
+
+
+def gather_seq(x: torch.Tensor, ctx: ShardCtx, dim: int = 1) -> torch.Tensor:
+    """The sequence blocks along ``dim`` gathered whole; the backward
+    reduce-scatters the partial gradients back to the blocks."""
+    group, order, _ = _model(ctx)
+    return _AllGather.apply(x, group, dim, order)
+
+
+def scatter_seq(x: torch.Tensor, ctx: ShardCtx, dim: int = 1) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` over the model axis, this rank
+    keeping its block along ``dim`` (a reduce-scatter); the backward
+    gathers the blocks' gradients whole."""
+    group, order, _ = _model(ctx)
+    return _ScatterSeq.apply(x, group, dim, order)
+
+
+def whole_of(x: torch.Tensor, ctx: ShardCtx, dim: int) -> torch.Tensor:
+    """The blocks along ``dim`` gathered whole over the model axis, for a
+    computation every rank repeats; the gradient goes back as the block."""
+    group, order, index = _model(ctx)
+    return _WholeOf.apply(x, group, dim, order, index)
+
+
+def block_of(x: torch.Tensor, ctx: ShardCtx, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of ``x`` whole over the model axis;
+    the gradient of the whole is gathered from the blocks'."""
+    group, order, index = _model(ctx)
+    return _BlockOf.apply(x, group, dim, order, index)

@@ -31,8 +31,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.distributed.context import (P, ShardCtx, Stored, _as_axes, _block,
-                                             _narrow, batch_axis, divides, gather)
-from repro_torch.models import model as M
+                                             _narrow, batch_axis, block_of, copy_to_model,
+                                             divides, gather)
 from repro_torch.models.config import ModelConfig, ShapeCell
 
 
@@ -148,8 +148,43 @@ def _base_spec(names: Tuple[str, ...], shape: Tuple[int, ...],
     return P(*([None] * len(shape))), len(shape)
 
 
+def leaf_spec(x, names: Tuple[str, ...], cfg: ModelConfig, ctx: ShardCtx) -> P:
+    """The spec of one weight as a layer takes it (unstacked): a stored
+    leaf's own, else ``_base_spec``'s for its names (the trailing keys on
+    the way to it, e.g. ``("attn", "wq")``) and shape."""
+    if isinstance(x, Stored):
+        return x.spec
+    spec, nd = _base_spec(tuple(names), tuple(x.shape), cfg, ctx)
+    return P(*([None] * (x.ndim - nd)), *spec)
+
+
+def model_dim(spec, ctx: ShardCtx) -> Optional[int]:
+    """The dimension a spec cuts over the model axis, None if it keeps the
+    tensor whole over it."""
+    return next((d for d, e in enumerate(spec) if ctx.model_axis in _as_axes(e)), None)
+
+
+def model_block(x, dim: int, ctx: ShardCtx) -> torch.Tensor:
+    """The rank's "model" block along ``dim`` of a weight its spec cuts
+    there: a stored one's "data" split gathered (``gather(keep=)``), a
+    whole one narrowed (``block_of``)."""
+    if isinstance(x, Stored):
+        return gather(x, keep=(ctx.model_axis,))
+    return block_of(x, ctx, dim)
+
+
+def tp_weight(x, names: Tuple[str, ...], cfg: ModelConfig, ctx: ShardCtx) -> torch.Tensor:
+    """A weight as a rank computes on it inside a layer's model-axis
+    section: its "model" block where its spec cuts it over "model"
+    (``model_block``), else gathered whole and entered through
+    ``copy_to_model``, so its partial gradient is summed over "model"."""
+    dim = model_dim(leaf_spec(x, names, cfg, ctx), ctx)
+    return copy_to_model(gather(x), ctx) if dim is None else model_block(x, dim, ctx)
+
+
 def param_specs(cfg: ModelConfig, ctx: ShardCtx) -> Any:
     """Spec tree matching ``init_params(cfg)``'s structure."""
+    from repro_torch.models import model as M
     def rule(names, leaf):
         spec, base_nd = _base_spec(names, tuple(leaf.shape), cfg, ctx)
         pad = leaf.ndim - base_nd
@@ -172,6 +207,7 @@ def cache_specs(cfg: ModelConfig, ctx: ShardCtx, batch: int, max_seq: int = 8) -
     Decode KV: seq over "model" (flash-decode sequence parallelism) when
     max_seq divides the TP degree; batch over the data axes when divisible,
     else replicated (long_500k B=1)."""
+    from repro_torch.models import model as M
     b_ax = _b_ax(ctx, batch)
     m = ctx.model_axis
 
@@ -228,45 +264,56 @@ def input_shardings(cfg: ModelConfig, ctx: ShardCtx, cell: ShapeCell,
 # =============================================================================
 # activations
 # =============================================================================
-# The reference pins some activations with ``with_sharding_constraint``.  A
-# constraint moves no value and the port keeps activations whole on every
-# rank, so its model code leaves them out; these name the layout each would
-# take (None where the reference pins nothing), for a sharded activation
-# store to follow.
+# The reference pins some activations with ``with_sharding_constraint``;
+# these name the layout each takes (None where the reference pins nothing),
+# and the model code computes on them: ``seq_spec`` decides where the
+# residual stream is the rank's sequence block (``ShardCtx.seq_blocks``),
+# ``head_spec`` whether attention runs on the rank's heads or, for a
+# multi-token call whose heads do not divide the model axis, on its block
+# of the query sequence, ``ssm_head_spec`` whether the SSD runs on the
+# rank's heads.
+
+def _shape(x) -> Tuple[int, ...]:
+    """The shape of a tensor, or a shape given as a tuple."""
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
 
 def head_spec(ctx: ShardCtx, x, allow_seq: bool = False) -> Optional[P]:
-    """Attention's (B, S, H, D) activations: heads over the model axis when
-    they divide it, else (``allow_seq``, a multi-token call) the query
-    sequence."""
-    if x.ndim != 4:
+    """Attention's (B, S, H, D) activations (a tensor or its shape): heads
+    over the model axis when they divide it, else (``allow_seq``, a
+    multi-token call) the query sequence."""
+    shape = _shape(x)
+    if len(shape) != 4:
         return None
-    b_ax = batch_axis(ctx, x.shape[0])
-    if divides(x.shape[2], ctx.tp):
+    b_ax = batch_axis(ctx, shape[0])
+    if divides(shape[2], ctx.tp):
         return P(b_ax, None, ctx.model_axis, None)
-    if allow_seq and x.shape[1] > 1 and divides(x.shape[1], ctx.tp):
+    if allow_seq and shape[1] > 1 and divides(shape[1], ctx.tp):
         return P(b_ax, ctx.model_axis, None, None)
     return None
 
 
 def ssm_head_spec(ctx: ShardCtx, x, head_axis: int) -> Optional[P]:
-    """An SSD operand: the head dim over the model axis, the batch over the
-    batch axes."""
-    if not divides(x.shape[head_axis], ctx.tp):
+    """An SSD operand (a tensor or its shape): the head dim over the model
+    axis, the batch over the batch axes."""
+    shape = _shape(x)
+    if not divides(shape[head_axis], ctx.tp):
         return None
-    spec = [None] * x.ndim
-    spec[0] = batch_axis(ctx, x.shape[0])
+    spec = [None] * len(shape)
+    spec[0] = batch_axis(ctx, shape[0])
     spec[head_axis] = ctx.model_axis
     return P(*spec)
 
 
 def seq_spec(ctx: ShardCtx, x) -> Optional[P]:
-    """The (B, S, d) residual stream between blocks: S over the model axis
-    (sequence parallelism) when ``ctx.seq_parallel``."""
-    if not ctx.seq_parallel or x.ndim != 3 or x.shape[1] == 1:
+    """The (B, S, d) residual stream between blocks (a tensor or its
+    shape): S over the model axis (sequence parallelism) when
+    ``ctx.seq_parallel``."""
+    shape = _shape(x)
+    if (not ctx.seq_parallel or len(shape) != 3 or shape[1] == 1
+            or not divides(shape[1], ctx.tp)):
         return None
-    if not divides(x.shape[1], ctx.tp):
-        return None
-    return P(batch_axis(ctx, x.shape[0]), ctx.model_axis, None)
+    return P(batch_axis(ctx, shape[0]), ctx.model_axis, None)
 
 
 def placements_of(mesh, spec: P) -> tuple:

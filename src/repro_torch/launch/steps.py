@@ -33,8 +33,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.distributed.context import (P, ShardCtx, Stored, _as_axes, batch_axis,
-                                             current_ctx, gather, shard_ctx, sum_blocks,
-                                             sum_partials)
+                                             current_ctx, gather, reduce_from_model,
+                                             shard_ctx, sum_blocks, sum_partials, whole_of)
 from repro_torch.distributed.sharding import (cache_specs, input_shardings, is_stored,
                                               param_specs, place, stored_zeros)
 from repro_torch.models import model as M
@@ -102,22 +102,50 @@ def placements_input(cfg: ModelConfig, device=None) -> Optional[torch.Tensor]:
 # loss
 # =============================================================================
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """logits (B, S, V) f32; labels (B, S) int.  Mean over (B, S) of
+def cross_entropy(logits, labels: torch.Tensor) -> torch.Tensor:
+    """logits (B, S, V) f32, or the rank's vocab block of them
+    (``models.model.VocabBlock``); labels (B, S) int.  Mean over (B, S) of
     logsumexp - gold logit; under batch blocks over the global batch.
 
     The gold logit is a ``gather``, where the reference contracts the
     logits with a one-hot (a layout choice for vocab-sharded logits): a sum
     of exact zeros and one product with 1.0 is the gold logit itself, so
     both give the same f32 value, and the gather saves a (B, S, V) f32
-    one-hot (622 MB at qwen3's vocabulary and 8 x 128 tokens)."""
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    one-hot (622 MB at qwen3's vocabulary and 8 x 128 tokens).  On a vocab
+    block the loss is vocab-parallel (``_vocab_parallel``)."""
+    if isinstance(logits, M.VocabBlock):
+        lse, gold = _vocab_parallel(logits, labels, current_ctx())
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     ctx = current_ctx()
     if ctx is not None and ctx.batch_blocks:
         # the global mean: the blocks' sums over the global count
         return sum_blocks(torch.sum(lse - gold), ctx) / (lse.numel() * ctx.dp)
     return torch.mean(lse - gold)
+
+
+def _vocab_parallel(logits, labels: torch.Tensor, ctx: ShardCtx):
+    """(logsumexp, gold logit), each (B, S) and whole over "model", of
+    logits held as the rank's vocab block: the row max by a pmax, the sum
+    of the shifted exponentials and the gold logit (a gather on the rank
+    that holds it, 0 elsewhere) by sums over "model" whose gradient passes
+    through, so only the rank's block of the logits takes a gradient."""
+    local, n = logits.local, logits.local.shape[-1]
+    m = ctx.mesh.pmax(local.amax(-1), ctx.model_axis)
+    sumexp = reduce_from_model(torch.exp(local - m[..., None]).sum(-1), ctx)
+    ids = labels.long() - logits.start
+    mine = (ids >= 0) & (ids < n)
+    gold = torch.gather(local, -1, ids.clamp(0, n - 1)[..., None])[..., 0]
+    return torch.log(sumexp) + m, reduce_from_model(gold * mine, ctx)
+
+
+def _last_logits(logits) -> torch.Tensor:
+    """The last position's logits (B, V), whole: a vocab block's gathered
+    over "model"."""
+    if isinstance(logits, M.VocabBlock):
+        return whole_of(logits.local[:, -1], current_ctx(), 1)
+    return logits[:, -1, :]
 
 
 # =============================================================================
@@ -146,9 +174,12 @@ def make_train_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
         if "frames" in batch:
             kw["frames"] = batch["frames"]
         logits, aux = M.forward_train(p, tcfg, batch["tokens"],
-                                      placements=batch.get("placements"), **kw)
+                                      placements=batch.get("placements"), vocab_blocks=True,
+                                      **kw)
         if cfg.family == "vlm" and "vision_embeds" in batch:
-            logits = logits[:, batch["vision_embeds"].shape[1]:, :]
+            n = batch["vision_embeds"].shape[1]
+            logits = (logits._replace(local=logits.local[:, n:])
+                      if isinstance(logits, M.VocabBlock) else logits[:, n:, :])
         loss = cross_entropy(logits, batch["labels"])
         if cfg.is_moe:
             loss = loss + cfg.router_aux_coef * aux.get("load_balance_loss", 0.0) \
@@ -241,8 +272,9 @@ def make_prefill_step(cfg: ModelConfig, ctx: Optional[ShardCtx] = None,
                 cache = M.init_cache(cfg, b, total_seq, device=tokens.device)
             kw = {k: batch[k] for k in ("vision_embeds", "frames") if k in batch}
             logits, new_cache, _ = M.prefill(params, cfg, tokens, cache,
-                                             placements=batch.get("placements"), **kw)
-            first = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                                             placements=batch.get("placements"),
+                                             vocab_blocks=True, **kw)
+            first = torch.argmax(_last_logits(logits), dim=-1).to(torch.int32)
             if blocks:
                 return _rows_out(first, ctx), new_cache
             return (place(first, out_specs[0], ctx.mesh) if stored else first), new_cache

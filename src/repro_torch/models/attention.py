@@ -33,9 +33,23 @@ gathering the chunks back would give.  Any other decode opens a stored
 cache whole and writes each rank's block back.  Under batch blocks
 (``ShardCtx.batch_blocks``) ``x`` and ``cache_pos`` are this rank's rows,
 a stored cache's region block (or opened view) holds the same rows, and a
-whole cache, which holds every row, is refused.  The reference's
-sharding constraints on q and the expanded k/v move no value and are left
-out; ``distributed/sharding.py`` keeps their choice of layout.
+whole cache, which holds every row, is refused.
+
+The model axis (the reference's ``_head_constraint``, ``head_spec`` of
+``distributed/sharding.py``): under a context, a layer takes its input in
+the residual stream's layout and returns its output in it.  Where the
+query heads divide the model axis, q/k/v are computed on the rank's head
+block (k/v kept whole where the kv heads do not divide, each rank taking
+the kv heads of its query heads: the Megatron GQA recipe), attention runs
+on those heads, and ``wo`` is row-parallel, its partial sums reduced
+(``layers.enter`` / ``leave``).  Where they do not divide and the residual
+is the rank's block of the sequence, attention is context-parallel: q on
+that block, k/v over the whole sequence, materialized scores as the
+reference's ``_sdpa_auto`` takes them, and ``wo`` whole.  A decode makes
+q, k_new and v_new whole over the heads before the sequence-sharded region
+(its in-specs replicate them) and applies ``wo`` to the rank's heads
+after.  MLA follows the same rules over ``wq_b``/``wkv_b``'s heads; a layer
+whose heads do not divide otherwise runs whole on every rank.
 """
 from __future__ import annotations
 
@@ -43,11 +57,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.context import (P, Stored, batch_axis, check_cache,
-                                             current_ctx, divides, opened, shard_map)
+from repro_torch.distributed.context import (P, Stored, batch_axis, block_of, check_cache,
+                                             copy_to_model, current_ctx, divides, gather,
+                                             gather_seq, gather_tree, opened,
+                                             reduce_from_model, shard_map, whole_of)
+from repro_torch.distributed.sharding import head_spec, tp_weight
 from repro_torch.kernels.ops import paged_decode_attention
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope, normal, rms_norm, softcap
+from repro_torch.models.layers import (apply_rope, enter, leave, normal, replicated,
+                                       rms_norm, softcap)
 
 NEG_INF = -2.0 ** 30  # large-but-finite: keeps masked softmax NaN-free in bf16
 
@@ -73,15 +91,14 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
+def _proj(params: dict, cfg: ModelConfig, x: torch.Tensor, name: str) -> torch.Tensor:
+    """One of the q/k/v projections ("q", "k", "v"), with its bias."""
+    out = torch.einsum("bsd,dhk->bshk", x, params["w" + name])
+    return out + params["b" + name] if cfg.qkv_bias else out
+
+
 def _qkv(params: dict, cfg: ModelConfig, x: torch.Tensor):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    if cfg.qkv_bias:
-        q = q + params["bq"]
-        k = k + params["bk"]
-        v = v + params["bv"]
-    return q, k, v
+    return tuple(_proj(params, cfg, x, n) for n in "qkv")
 
 
 def _expand_kv(k: torch.Tensor, hq: int) -> torch.Tensor:
@@ -90,6 +107,46 @@ def _expand_kv(k: torch.Tensor, hq: int) -> torch.Tensor:
     if hkv != hq:
         k = torch.repeat_interleave(k, hq // hkv, dim=2)
     return k
+
+
+def _mode(ctx, heads: int, x: torch.Tensor) -> Optional[str]:
+    """How a layer with ``heads`` query heads runs on ``x`` (in the
+    residual layout) under ``ctx``, from ``head_spec``'s layout of its
+    (B, S, H, D) activations: None (no context), "heads" (on the rank's
+    heads), "seq" (context-parallel on the rank's block of the sequence,
+    where the residual stream is that block) or "whole" (every rank repeats
+    it)."""
+    if ctx is None:
+        return None
+    s = x.shape[1] * (ctx.tp if ctx.seq_blocks else 1)
+    spec = head_spec(ctx, (x.shape[0], s, heads, 1), allow_seq=ctx.seq_blocks)
+    if spec is None:
+        return "whole"
+    return "heads" if spec[2] is not None else "seq"
+
+
+def _head_weights(params: dict, cfg: ModelConfig, ctx) -> dict:
+    """The projections on the rank's head blocks (``sharding.tp_weight``);
+    a kv bias kept whole is cut to the kv heads of a kv block."""
+    w = {k: tp_weight(v, ("attn", k), cfg, ctx) for k, v in params.items()}
+    if "bk" in w and w["wk"].shape[1] != w["bk"].shape[0]:
+        hkv, r = w["wk"].shape[1], ctx.mesh.axis_index(ctx.model_axis)
+        w["bk"] = w["bk"].narrow(0, r * hkv, hkv)
+        w["bv"] = w["bv"].narrow(0, r * hkv, hkv)
+    return w
+
+
+def _kv_for(cfg: ModelConfig, k: torch.Tensor, hq: int) -> torch.Tensor:
+    """k or v (B,S,Hk,D) for ``hq`` query heads: the plain repeat when they
+    are the whole heads or matching blocks, else (kv whole, q the rank's
+    block of heads) the kv head of each of the rank's query heads."""
+    if k.shape[2] * cfg.num_heads == cfg.num_kv_heads * hq:
+        return _expand_kv(k, hq)
+    ctx = current_ctx()
+    group = cfg.num_heads // cfg.num_kv_heads
+    first = ctx.mesh.axis_index(ctx.model_axis) * hq
+    idx = (first + torch.arange(hq, device=k.device)) // group
+    return k.index_select(2, idx)
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
@@ -147,16 +204,29 @@ def _sdpa_chunked(cfg: ModelConfig, q, k, v, window: int, causal: bool = True,
     return torch.cat(outs, dim=1)
 
 
-def _sdpa_auto(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
-    """Pick chunked vs. materialized scores by footprint.  Under a shard
-    context whose model axis divides the query sequence but not the heads,
-    the reference attends with materialized scores (context-parallel: the
-    scores split on the query sequence), whatever their size."""
-    ctx = current_ctx()
-    if (ctx is not None and q.shape[1] > 1 and not divides(q.shape[2], ctx.tp)
-            and divides(q.shape[1], ctx.tp)):
-        mask = (_causal_mask(q.shape[1], k.shape[1], window, q.device) if causal else
-                torch.ones((1, q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device))
+def _seq_mask(s_loc: int, first: int, skv: int, window: int, causal: bool,
+              device) -> torch.Tensor:
+    """(1, s_loc, Skv) mask of the queries at positions [first, first +
+    s_loc) of a sequence of Skv."""
+    i = first + torch.arange(s_loc, device=device)[:, None]
+    j = torch.arange(skv, device=device)[None, :]
+    if not causal:
+        return torch.ones((1, s_loc, skv), dtype=torch.bool, device=device)
+    m = j <= i
+    if window > 0:
+        m = m & (j > (i - window))
+    return m[None]
+
+
+def _sdpa_auto(cfg: ModelConfig, q, k, v, window: int, causal: bool = True,
+               first: Optional[int] = None):
+    """Pick chunked vs. materialized scores by footprint.  ``first``: q is
+    the block of the query sequence from that position (context-parallel
+    attention under a shard context whose model axis does not divide the
+    heads), which the reference attends with materialized scores, whatever
+    their size."""
+    if first is not None:
+        mask = _seq_mask(q.shape[1], first, k.shape[1], window, causal, q.device)
         return _sdpa(cfg, q, k, v, mask)
     if q.shape[1] * k.shape[1] > CHUNK_THRESHOLD and q.shape[1] > 1:
         return _sdpa_chunked(cfg, q, k, v, window, causal)
@@ -165,22 +235,78 @@ def _sdpa_auto(cfg: ModelConfig, q, k, v, window: int, causal: bool = True):
     return _sdpa(cfg, q, k, v, mask)
 
 
+def _write_prefix(cache: Optional[dict], names, vals, ctx) -> None:
+    """Write [0, S) of each cache leaf in place; a value on the rank's head
+    block (dim 2) is gathered whole over the heads first."""
+    if cache is None:
+        return
+    for name, val in zip(names, vals):
+        if val.ndim == 4 and ctx is not None and val.shape[2] != cache[name].shape[2]:
+            val = whole_of(val, ctx, 2)
+        cache[name][:, :val.shape[1]] = val.to(cache[name].dtype)
+
+
 def gqa_full(params: dict, cfg: ModelConfig, x: torch.Tensor,
              positions: torch.Tensor, local: bool, cache: Optional[dict] = None):
     """Prefill attention.  Returns (out, cache_or_None); the given cache
     ({"k": (B,S_max,Hkv,D), "v": ...}) is written in place at positions
-    [0, S) — one fewer copy than the reference's functional update."""
-    q, k, v = _qkv(params, cfg, x)
+    [0, S) — one fewer copy than the reference's functional update.  Under
+    a context ``x`` and ``out`` are in the residual layout (see the module
+    docstring) and ``positions`` cover the whole sequence."""
+    ctx = current_ctx()
+    mode = _mode(ctx, cfg.num_heads, x)
+    window = cfg.sliding_window if local else 0
+    seq = ctx is not None and ctx.seq_blocks
+    if mode in (None, "whole"):
+        return _gqa_full_on(gather_tree(params), cfg, x, positions, window, cache, ctx), cache
+    if mode == "seq":
+        # context-parallel: q on the rank's sequence block, k/v whole
+        w = {k: copy_to_model(gather(v), ctx) for k, v in params.items()}
+        first = ctx.mesh.axis_index(ctx.model_axis) * x.shape[1]
+        hf = gather_seq(x, ctx, 1)
+        k, v = _proj(w, cfg, hf, "k"), _proj(w, cfg, hf, "v")
+        q = apply_rope(_proj(w, cfg, x, "q"), positions[:, first:first + x.shape[1]],
+                       cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        _write_prefix(cache, ("k", "v"), (k, v), ctx)
+        out = _sdpa_auto(cfg, q, k, v, window, causal=True, first=first)
+        return torch.einsum("bshk,hkd->bsd", out, w["wo"]), cache
+    out = _gqa_full_on(_head_weights(params, cfg, ctx), cfg, enter(x, ctx, seq), positions,
+                       window, cache, ctx)
+    return leave(out, ctx, seq), cache
+
+
+def _gqa_full_on(w: dict, cfg: ModelConfig, h, positions, window: int, cache, ctx):
+    """Attention of the whole sequence ``h`` on the heads of ``w`` (whole,
+    or the rank's head blocks): the output before any sum over "model"."""
+    q, k, v = _qkv(w, cfg, h)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    window = cfg.sliding_window if local else 0
-    if cache is not None:
-        s = k.shape[1]
-        cache["k"][:, :s] = k.to(cache["k"].dtype)
-        cache["v"][:, :s] = v.to(cache["v"].dtype)
-    out = _sdpa_auto(cfg, q, k, v, window, causal=True)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return out, cache
+    _write_prefix(cache, ("k", "v"), (k, v), ctx)
+    out = _sdpa_auto(cfg, q, _kv_for(cfg, k, q.shape[2]), _kv_for(cfg, v, q.shape[2]),
+                     window, causal=True)
+    return torch.einsum("bshk,hkd->bsd", out, w["wo"])
+
+
+def encoder_attention(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder self-attention: non-causal, no rope; under a
+    context on the rank's heads (or whole on every rank)."""
+    ctx = current_ctx()
+    mode = _mode(ctx, cfg.num_heads, x)
+    seq = ctx is not None and ctx.seq_blocks
+    if mode in ("whole", "seq"):
+        return replicated(lambda h: _encoder_plain(gather_tree(params), cfg, h), x, ctx, seq)
+    w = gather_tree(params) if mode is None else _head_weights(params, cfg, ctx)
+    out = _encoder_plain(w, cfg, x if mode is None else enter(x, ctx, seq))
+    return out if mode is None else leave(out, ctx, seq)
+
+
+def _encoder_plain(w: dict, cfg: ModelConfig, h: torch.Tensor) -> torch.Tensor:
+    q = torch.einsum("bsd,dhk->bshk", h, w["wq"])
+    k = torch.einsum("bsd,dhk->bshk", h, w["wk"])
+    v = torch.einsum("bsd,dhk->bshk", h, w["wv"])
+    a = _sdpa_auto(cfg, q, k, v, 0, causal=False)
+    return torch.einsum("bshk,hkd->bsd", a, w["wo"])
 
 
 def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -189,33 +315,55 @@ def gqa_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     {"k": (B,S,Hkv,D), "v": ...}; cache_pos: (B,) int32 write positions.
     The new K/V are written IN PLACE (the reference returns new arrays);
     returns (out, cache).  Under a shard context whose model axis divides
-    the cache length, the sequence-sharded decode runs instead."""
-    q, k_new, v_new = _qkv(params, cfg, x)
+    the cache length, the sequence-sharded decode runs instead; q, k_new
+    and v_new are made whole over the heads for it, and ``wo`` runs on the
+    rank's heads (see the module docstring)."""
+    ctx = current_ctx()
+    heads = _mode(ctx, cfg.num_heads, x) == "heads"
+    w = _head_weights(params, cfg, ctx) if heads else gather_tree(params)
+    q, k_new, v_new = _qkv(w, cfg, enter(x, ctx, False) if heads else x)
     q = apply_rope(q, cache_pos[:, None], cfg.rope_theta)
     k_new = apply_rope(k_new, cache_pos[:, None], cfg.rope_theta)
-    pos = cache_pos.long()
-    rows = torch.arange(x.shape[0], device=x.device)
+    if heads:
+        q, k_new, v_new = (t if t.shape[2] == n else whole_of(t, ctx, 2) for t, n in
+                           ((q, cfg.num_heads), (k_new, cfg.num_kv_heads),
+                            (v_new, cfg.num_kv_heads)))
+    out = _gqa_decode_attend(cfg, q, k_new, v_new, cache, cache_pos, local, ctx)
+    return _heads_out(out, w["wo"], ctx, heads), cache
 
-    ctx = current_ctx()
+
+def _heads_out(out: torch.Tensor, wo: torch.Tensor, ctx, heads: bool) -> torch.Tensor:
+    """A decode's output projection: whole, or on the rank's heads of the
+    whole ``out`` with the partial sums reduced over "model"."""
+    if not heads:
+        return torch.einsum("bshk,hkd->bsd", out, wo)
+    out = block_of(out, ctx, 2)
+    return reduce_from_model(torch.einsum("bshk,hkd->bsd", out, wo), ctx)
+
+
+def _gqa_decode_attend(cfg: ModelConfig, q, k_new, v_new, cache: dict, cache_pos,
+                       local: bool, ctx) -> torch.Tensor:
+    """The new row written into the cache and attention over it, all heads:
+    (B,1,Hq,D)."""
+    pos = cache_pos.long()
+    rows = torch.arange(q.shape[0], device=q.device)
     if ctx is not None and divides(cache["k"].shape[1], ctx.tp):
         check_cache(cache["k"])
         out = _gqa_decode_seqsharded(cfg, q, k_new, v_new, cache, cache_pos, local, ctx)
         if not isinstance(cache["k"], Stored):
             cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
             cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+        return out
 
     with opened(cache) as c:
         c["k"][rows, pos] = k_new[:, 0].to(c["k"].dtype)
         c["v"][rows, pos] = v_new[:, 0].to(c["v"].dtype)
         s_max = c["k"].shape[1]
-        j = torch.arange(s_max, device=x.device)[None, :]
+        j = torch.arange(s_max, device=q.device)[None, :]
         mask = j <= pos[:, None]
         if local and cfg.sliding_window > 0:
             mask &= j > (pos[:, None] - cfg.sliding_window)
-        out = _sdpa(cfg, q, c["k"].to(q.dtype), c["v"].to(q.dtype), mask[:, None, :])
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return out, cache
+        return _sdpa(cfg, q, c["k"].to(q.dtype), c["v"].to(q.dtype), mask[:, None, :])
 
 
 def _write_row_guarded(c: torch.Tensor, new: torch.Tensor, lp_safe, in_range) -> None:
@@ -369,13 +517,25 @@ def gqa_decode_paged(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dic
 
 def cross_attention(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     memory: torch.Tensor) -> torch.Tensor:
-    """x: (B,Sq,d) queries; memory: (B,Skv,d) encoder output.  No mask, no rope."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", memory, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", memory, params["wv"])
+    """x: (B,Sq,d) queries (under a context in the residual layout);
+    memory: (B,Skv,d) encoder output, whole over "model".  No mask, no
+    rope.  Under a context on the rank's heads (or whole on every rank)."""
+    ctx = current_ctx()
+    seq = ctx is not None and ctx.seq_blocks
+    if _mode(ctx, cfg.num_heads, x) != "heads":
+        return replicated(lambda h: _cross_on(gather_tree(params), cfg, h, memory), x, ctx,
+                          seq)
+    out = _cross_on(_head_weights(params, cfg, ctx), cfg, enter(x, ctx, seq),
+                    enter(memory, ctx, False))
+    return leave(out, ctx, seq)
+
+
+def _cross_on(w: dict, cfg: ModelConfig, x: torch.Tensor, memory: torch.Tensor):
+    q = torch.einsum("bsd,dhk->bshk", x, w["wq"])
+    k = torch.einsum("bsd,dhk->bshk", memory, w["wk"])
+    v = torch.einsum("bsd,dhk->bshk", memory, w["wv"])
     mask = torch.ones((1, q.shape[1], k.shape[1]), dtype=torch.bool, device=x.device)
-    out = _sdpa(cfg, q, k, v, mask)
-    return torch.einsum("bshk,hkd->bsd", out, params["wo"])
+    return torch.einsum("bshk,hkd->bsd", _sdpa(cfg, q, k, v, mask), w["wo"])
 
 
 # =============================================================================
@@ -429,22 +589,35 @@ def mla_full(params: dict, cfg: ModelConfig, x: torch.Tensor, positions: torch.T
              cache: Optional[dict] = None):
     """Naive (paper-faithful) MLA for prefill: decompress, then attend with
     q/k of head dim dn + dr and v of dv.  The given cache is written in
-    place at positions [0, S)."""
+    place at positions [0, S).  Under a context on the rank's heads of
+    ``wq_b``/``wkv_b``/``wo`` (the latent projections and their norms
+    whole), or whole on every rank where the heads do not divide."""
+    ctx = current_ctx()
+    mode = _mode(ctx, cfg.num_heads, x)
+    seq = ctx is not None and ctx.seq_blocks
+    if mode != "heads":
+        return replicated(lambda h: _mla_full_on(gather_tree(params), cfg, h, positions,
+                                                 cache), x, ctx, seq), cache
+    out = _mla_full_on(_head_weights(params, cfg, ctx), cfg, enter(x, ctx, seq), positions,
+                       cache)
+    return leave(out, ctx, seq), cache
+
+
+def _mla_full_on(w: dict, cfg: ModelConfig, x, positions, cache) -> torch.Tensor:
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(params, cfg, x, positions)
-    ckv, krope = _mla_ckv(params, cfg, x, positions)
+    q_nope, q_rope = _mla_q(w, cfg, x, positions)
+    ckv, krope = _mla_ckv(w, cfg, x, positions)
     if cache is not None:
         s = ckv.shape[1]
         cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
         cache["krope"][:, :s] = krope.to(cache["krope"].dtype)
-    kv = torch.einsum("bsr,rhk->bshk", ckv, params["wkv_b"])
+    kv = torch.einsum("bsr,rhk->bshk", ckv, w["wkv_b"])
     k_nope, v = kv[..., :dn], kv[..., dn:]
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, krope[:, :, None, :].expand(*krope.shape[:2], cfg.num_heads,
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(*krope.shape[:2], q.shape[2],
                                                         krope.shape[-1])], dim=-1)
     out = _sdpa_auto(cfg, q, k, v, 0, causal=True)
-    out = torch.einsum("bshk,hkd->bsd", out[..., :dv], params["wo"])
-    return out, cache
+    return torch.einsum("bshk,hkd->bsd", out[..., :dv], w["wo"])
 
 
 def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -455,22 +628,32 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     absorb=False: paper-faithful, decompress every cached step, then attend.
     absorb=True: weight-absorbed, scores in latent space; never builds
     per-head K/V for the cache.  Under a shard context whose model axis
-    divides the cache length, the sequence-sharded decode runs instead."""
+    divides the cache length, the sequence-sharded decode runs instead.
+    Under a context whose model axis divides the heads, the queries are
+    computed on the rank's heads and made whole for the attention (which
+    takes ``wkv_b`` whole), and ``wo`` runs on the rank's heads."""
     dn = cfg.qk_nope_head_dim
-    q_nope, q_rope = _mla_q(params, cfg, x, cache_pos[:, None])
-    ckv_new, krope_new = _mla_ckv(params, cfg, x, cache_pos[:, None])
+    ctx = current_ctx()
+    heads = _mode(ctx, cfg.num_heads, x) == "heads"
+    pw = _head_weights(params, cfg, ctx) if heads else gather_tree(params)
+    h = enter(x, ctx, False) if heads else x
+    q_nope, q_rope = _mla_q(pw, cfg, h, cache_pos[:, None])
+    ckv_new, krope_new = _mla_ckv(pw, cfg, h, cache_pos[:, None])
+    wkv_b = pw["wkv_b"]                       # the attention below takes every head's
+    if heads:
+        q_nope, q_rope = whole_of(q_nope, ctx, 2), whole_of(q_rope, ctx, 2)
+        wkv_b = gather(params["wkv_b"])
     pos = cache_pos.long()
     rows = torch.arange(x.shape[0], device=x.device)
 
-    ctx = current_ctx()
     if ctx is not None and divides(cache["ckv"].shape[1], ctx.tp):
         check_cache(cache["ckv"])
-        out = _mla_decode_seqsharded(cfg, params, q_nope, q_rope, ckv_new, krope_new,
+        out = _mla_decode_seqsharded(cfg, wkv_b, q_nope, q_rope, ckv_new, krope_new,
                                      cache, cache_pos, ctx, absorb)
         if not isinstance(cache["ckv"], Stored):
             cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
             cache["krope"][rows, pos] = krope_new[:, 0].to(cache["krope"].dtype)
-        return torch.einsum("bshk,hkd->bsd", out, params["wo"]), cache
+        return _heads_out(out, pw["wo"], ctx, heads), cache
 
     with opened(cache) as c:
         c["ckv"][rows, pos] = ckv_new[:, 0].to(c["ckv"].dtype)
@@ -482,8 +665,8 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     masked = (torch.arange(s_max, device=x.device)[None, :] > pos[:, None])[:, None, None]
     scale = (dn + cfg.qk_rope_head_dim) ** -0.5
     if absorb:
-        wkb_k = params["wkv_b"][..., :dn]                         # (r, h, dn)
-        wkb_v = params["wkv_b"][..., dn:]                         # (r, h, dv)
+        wkb_k = wkv_b[..., :dn]                                   # (r, h, dn)
+        wkb_v = wkv_b[..., dn:]                                   # (r, h, dv)
         q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkb_k)     # (b,1,h,r)
         scores = (torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
                   + torch.einsum("bshk,btk->bhst", q_rope, krope_c)).float() * scale
@@ -491,17 +674,16 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
         o_lat = torch.einsum("bhst,btr->bshr", w, ckv_c)          # (b,1,h,r)
         out = torch.einsum("bshr,rhk->bshk", o_lat, wkb_v)        # (b,1,h,dv)
     else:
-        kv = torch.einsum("btr,rhk->bthk", ckv_c, params["wkv_b"])  # every step
+        kv = torch.einsum("btr,rhk->bthk", ckv_c, wkv_b)          # every step
         k_nope, v = kv[..., :dn], kv[..., dn:]
         scores = (torch.einsum("bshk,bthk->bhst", q_nope, k_nope)
                   + torch.einsum("bshk,btk->bhst", q_rope, krope_c)).float() * scale
         w = torch.softmax(scores.masked_fill(masked, NEG_INF), dim=-1).to(x.dtype)
         out = torch.einsum("bhst,bthk->bshk", w, v)
-    out = torch.einsum("bshk,hkd->bsd", out, params["wo"])
-    return out, cache
+    return _heads_out(out, pw["wo"], ctx, heads), cache
 
 
-def _mla_decode_seqsharded(cfg: ModelConfig, params, q_nope, q_rope, ckv_new,
+def _mla_decode_seqsharded(cfg: ModelConfig, wkb, q_nope, q_rope, ckv_new,
                            krope_new, cache, cache_pos, ctx, absorb: bool) -> torch.Tensor:
     """MLA decode with the compressed cache split over the model axis on
     the sequence (flash-decode combine over the model axis, as the GQA
@@ -511,7 +693,7 @@ def _mla_decode_seqsharded(cfg: ModelConfig, params, q_nope, q_rope, ckv_new,
     dn = cfg.qk_nope_head_dim
     b_ax = batch_axis(ctx, q_nope.shape[0])
     scale = (dn + cfg.qk_rope_head_dim) ** -0.5
-    wkb = params["wkv_b"]                       # (r, H, dn+dv), whole on every rank
+    # wkb: wkv_b (r, H, dn+dv), whole on every rank
     # latent queries (absorbed); the naive body reads q_nope itself
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wkb[..., :dn]) if absorb else q_nope
 

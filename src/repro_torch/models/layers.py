@@ -4,20 +4,39 @@ Ported from ``repro.models.layers`` with its conventions kept: RMSNorm
 scales by ``1 + scale`` (zero init), RoPE rotates the two halves of each
 head, SwiGLU takes SiLU in f32, and the unembedding returns f32 logits with
 the optional softcap.  Parameters are plain dicts of tensors.
+
+Under a shard context the layers compute on their "model" blocks
+(``distributed/context.py``'s model axis): ``enter`` takes a layer's input
+from the residual stream's layout into its section (the whole sequence,
+the gradient summed over "model"), ``leave`` reduces the partial output
+back into that layout, ``replicated`` runs a layer every rank repeats
+whole, ``residual_norm`` is the pre-norm on the residual stream, and
+``ffn_layer`` is the dense FFN column-parallel in ``w_gate``/``w_up`` and
+row-parallel in ``w_down``.
 """
 from __future__ import annotations
 
 import math
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import (block_of, copy_to_model, current_ctx,
+                                             gather, gather_seq, gather_tree,
+                                             reduce_from_model, scatter_seq, whole_of)
+from repro_torch.distributed.sharding import leaf_spec, model_dim, tp_weight
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             mean_sq: Optional[Callable] = None) -> torch.Tensor:
+    """RMS norm over the last dim; ``mean_sq`` (of the f32 ``x``) takes the
+    place of its mean square, for an ``x`` whose last dim is split."""
     dt = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    var = (torch.mean(torch.square(x), dim=-1, keepdim=True) if mean_sq is None
+           else mean_sq(x))
     out = x * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(dt)
 
@@ -52,6 +71,57 @@ def ffn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     up = torch.einsum("...d,df->...f", x, params["w_up"])
     act = F.silu(gate.float()).to(x.dtype) * up
     return torch.einsum("...f,fd->...d", act, params["w_down"])
+
+
+# --- the model axis --------------------------------------------------------------
+
+def enter(h: torch.Tensor, ctx, seq: bool) -> torch.Tensor:
+    """A layer's input, in the residual stream's layout (the rank's block
+    of the sequence on dim 1 when ``seq``), made whole for the layer's
+    model-axis section; its partial gradient is summed over "model"."""
+    return gather_seq(h, ctx, 1) if seq else copy_to_model(h, ctx)
+
+
+def leave(y: torch.Tensor, ctx, seq: bool) -> torch.Tensor:
+    """The ranks' partial outputs of a section summed over "model", into
+    the residual stream's layout."""
+    return scatter_seq(y, ctx, 1) if seq else reduce_from_model(y, ctx)
+
+
+def replicated(fn, h: torch.Tensor, ctx, seq: bool):
+    """``fn`` on the whole of ``h``, every rank repeating it (a layer whose
+    weights stay whole over "model"); its output in ``h``'s layout."""
+    if not seq:
+        return fn(h)
+    return block_of(fn(whole_of(h, ctx, 1)), ctx, 1)
+
+
+def residual_norm(x: torch.Tensor, scale, eps: float) -> torch.Tensor:
+    """The pre-norm of a block on the residual stream; on the rank's block
+    of the sequence the scale's gradient is summed over "model"."""
+    ctx = current_ctx()
+    scale = gather(scale)
+    if ctx is not None and ctx.seq_blocks:
+        scale = copy_to_model(scale, ctx)
+    return rms_norm(x, scale, eps)
+
+
+def ffn_layer(params: dict, cfg, x: torch.Tensor, names=("ffn",),
+              seq: bool = None) -> torch.Tensor:
+    """The gated FFN on ``x`` in the residual layout (``seq``: the rank's
+    sequence block, by default the context's).  Under a context whose
+    model axis the spec cuts ``w_gate`` over, gate/up run on their column
+    block and ``w_down`` on its row block, then the partial sums are
+    reduced; else every rank runs it whole."""
+    ctx = current_ctx()
+    if ctx is None:
+        return ffn_apply(gather_tree(params), x)
+    seq = ctx.seq_blocks if seq is None else seq
+    names = tuple(names)
+    if model_dim(leaf_spec(params["w_gate"], names + ("w_gate",), cfg, ctx), ctx) is None:
+        return replicated(lambda h: ffn_apply(gather_tree(params), h), x, ctx, seq)
+    w = {k: tp_weight(v, names + (k,), cfg, ctx) for k, v in params.items()}
+    return leave(ffn_apply(w, enter(x, ctx, seq)), ctx, seq)
 
 
 # tensors of more elements are drawn one slice of the leading axis at a

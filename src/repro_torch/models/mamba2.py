@@ -18,9 +18,18 @@ What differs from the reference, with the numerics kept:
   left to right and would build (B, nc, H, Q, Q, P) tensors).  All in f32.
 * The conv tail a prefill leaves is the pre-conv input it already holds
   (the reference recomputes the input projection for it: the same product).
-* The reference's head-sharding constraints move no value and are left
-  out (the port keeps activations whole on every rank);
-  ``distributed/sharding.py`` keeps their choice of layout.
+* Under a shard context whose model axis divides the SSD heads (the
+  reference's ``_head_constraint``, ``ssm_head_spec``), the mixer runs on
+  the rank's heads: ``w_in`` stays whole over "model" (its spec) and only
+  its columns of the rank's ``z``/``x``/``dt`` and the shared B/C are
+  computed; ``conv_w``/``conv_b`` take the rank's x channels and B/C (both
+  whole weights enter through ``copy_to_model``); ``A_log``/``D``/
+  ``dt_bias`` and the gated ``norm`` are the rank's blocks, the norm's RMS
+  over the whole ``d_inner`` from one psum of the partial sums of squares;
+  ``w_out`` is row-parallel, its partial sums reduced.  The cache holds
+  every head and channel: the new state and conv window are gathered whole
+  over the heads before they are written.  Heads that do not divide run
+  the mixer whole on every rank.
 """
 from __future__ import annotations
 
@@ -29,8 +38,10 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.context import current_ctx, gather_tree, whole_of
+from repro_torch.distributed.sharding import ssm_head_spec, tp_weight
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import normal, rms_norm
+from repro_torch.models.layers import enter, leave, normal, replicated, rms_norm
 
 
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig) -> dict:
@@ -76,8 +87,9 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return seg.masked_fill(~mask, float("-inf"))
 
 
-def _split_proj(params: dict, cfg: ModelConfig, u: torch.Tensor):
-    di, n = cfg.ssm_d_inner, cfg.ssm_state
+def _split_proj(params: dict, di: int, n: int, u: torch.Tensor):
+    """(z, xBC, dt) of the input projection, ``di`` the inner width the
+    weights hold (the rank's, on its heads)."""
     proj = u @ params["w_in"]
     return proj[..., :di], proj[..., di:2 * di + 2 * n], proj[..., 2 * di + 2 * n:]
 
@@ -151,10 +163,64 @@ def ssd_chunked(x, dt, A, B_, C, chunk: int, initial_state=None):
     return y[:, :l0], final_state
 
 
-def _gate_out(params: dict, cfg: ModelConfig, y, z, dtype):
+def _gate_out(params: dict, cfg: ModelConfig, y, z, dtype, ctx=None):
+    """The gated RMS norm and ``w_out``.  The mean square is over the whole
+    ``d_inner``: on the rank's heads (``ctx``) the partial sums of squares
+    are psummed over "model" (their gradient summed back, each rank's block
+    taking its share)."""
     y = y.to(dtype)
-    y = rms_norm(y * F.silu(z.float()).to(dtype), params["norm"], cfg.norm_eps)
-    return y @ params["w_out"]
+    g = y * F.silu(z.float()).to(dtype)
+
+    def mean_sq(gf):
+        ss = torch.sum(torch.square(gf), dim=-1, keepdim=True)
+        if ctx is not None:
+            ss = ctx.mesh.psum(ss, ctx.model_axis)
+        return ss / cfg.ssm_d_inner
+
+    return rms_norm(g, params["norm"], cfg.norm_eps, mean_sq) @ params["w_out"]
+
+
+def _local(params: dict, cfg: ModelConfig, ctx) -> dict:
+    """The mixer's weights on the rank's heads: ``w_in``, ``conv_w`` and
+    ``conv_b`` whole over "model" (through ``copy_to_model``) cut to the
+    rank's columns, the per-head and per-channel leaves the rank's blocks,
+    ``w_out`` its row block."""
+    w = {k: tp_weight(v, ("mamba", k), cfg, ctx) for k, v in params.items()}
+    di, n, h = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads
+    tp, r = ctx.tp, ctx.mesh.axis_index(ctx.model_axis)
+    dev = w["w_in"].device
+    dl, hl = di // tp, h // tp
+    mine = torch.arange(r * dl, (r + 1) * dl, device=dev)
+    bc = torch.arange(2 * n, device=dev)
+    conv = torch.cat([mine, di + bc])                     # the rank's x channels, B, C
+    w["w_in"] = w["w_in"].index_select(1, torch.cat([
+        mine, di + conv, 2 * di + 2 * n + torch.arange(r * hl, (r + 1) * hl, device=dev)]))
+    w["conv_w"] = w["conv_w"].index_select(1, conv)
+    w["conv_b"] = w["conv_b"].index_select(0, conv)
+    return w
+
+
+def _on_heads(ctx, cfg: ModelConfig) -> bool:
+    """Whether the mixer runs on the rank's SSD heads under ``ctx``
+    (``ssm_head_spec`` of its (B, L, H, P) operands)."""
+    return ctx is not None and ssm_head_spec(ctx, (1, 1, cfg.ssm_heads, 1), 2) is not None
+
+
+def _layout(params: dict, cfg: ModelConfig):
+    """(ctx, weights, d_inner, heads) of the mixer as this rank runs it:
+    the rank's heads under a context whose model axis divides them, else
+    the whole mixer (ctx None)."""
+    ctx = current_ctx()
+    if not _on_heads(ctx, cfg):
+        return None, gather_tree(params), cfg.ssm_d_inner, cfg.ssm_heads
+    return ctx, _local(params, cfg, ctx), cfg.ssm_d_inner // ctx.tp, cfg.ssm_heads // ctx.tp
+
+
+def _whole_channels(t: torch.Tensor, dl: int, ctx) -> torch.Tensor:
+    """(..., dl + 2n) conv inputs of the rank's channels -> every channel."""
+    if ctx is None:
+        return t
+    return torch.cat([whole_of(t[..., :dl].contiguous(), ctx, t.ndim - 1), t[..., dl:]], -1)
 
 
 def mamba2_full(params: dict, cfg: ModelConfig, u: torch.Tensor,
@@ -162,54 +228,80 @@ def mamba2_full(params: dict, cfg: ModelConfig, u: torch.Tensor,
     """Prefill pass.  u: (B, L, d).  With a cache ({"ssm": (B,H,P,N),
     "conv": (B,K-1,CC)}), the final state and the last K-1 pre-conv xBC
     inputs are written into it IN PLACE.  Returns (out, cache_or_None).
+    Under a context ``u`` and ``out`` are in the residual layout.
 
     For L < K-1 the tail is L rows long, as in the reference, and fills the
     first L rows of the window; the engine never gets there (its smallest
     prompt bucket is 16 tokens)."""
-    di, n, h, p = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    ctx = current_ctx()
+    if ctx is None:
+        return _mamba2_full_on(params, cfg, u, cache), cache
+    seq = ctx.seq_blocks
+    if not _on_heads(ctx, cfg):
+        return replicated(lambda h: _mamba2_full_on(params, cfg, h, cache), u, ctx,
+                          seq), cache
+    return leave(_mamba2_full_on(params, cfg, enter(u, ctx, seq), cache), ctx, seq), cache
+
+
+def _mamba2_full_on(params: dict, cfg: ModelConfig, u: torch.Tensor, cache) -> torch.Tensor:
+    ctx, w, di, h = _layout(params, cfg)
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
     b, l, _ = u.shape
-    z, xbc_raw, dt_raw = _split_proj(params, cfg, u)
-    xbc = _conv_full(params, xbc_raw)
+    z, xbc_raw, dt_raw = _split_proj(w, di, n, u)
+    xbc = _conv_full(w, xbc_raw)
     x = xbc[..., :di].reshape(b, l, h, p)
     B_ = xbc[..., di:di + n]
     C = xbc[..., di + n:]
-    dt = F.softplus(dt_raw.float() + params["dt_bias"])
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw.float() + w["dt_bias"])
+    A = -torch.exp(w["A_log"])
 
     y, final_state = ssd_chunked(x.float(), dt, A, B_.float(), C.float(), cfg.ssm_chunk)
-    y = y + x.float() * params["D"][None, None, :, None]
-    out = _gate_out(params, cfg, y.reshape(b, l, di), z, u.dtype)
+    y = y + x.float() * w["D"][None, None, :, None]
+    out = _gate_out(w, cfg, y.reshape(b, l, di), z, u.dtype, ctx)
 
     if cache is not None:
-        tail = xbc_raw[:, -(cfg.ssm_conv - 1):]
-        cache["ssm"].copy_(final_state)
+        tail = _whole_channels(xbc_raw[:, -(cfg.ssm_conv - 1):], di, ctx)
+        cache["ssm"].copy_(final_state if ctx is None else whole_of(final_state, ctx, 1))
         cache["conv"][:, :tail.shape[1]].copy_(tail)
-    return out, cache
+    return out
 
 
 def mamba2_decode(params: dict, cfg: ModelConfig, u: torch.Tensor, cache: dict):
     """One-token recurrent step.  u: (B,1,d); cache {"ssm": (B,H,P,N),
-    "conv": (B,K-1,CC)}, advanced IN PLACE.  Returns (out (B,1,d), cache)."""
-    di, n, h, p = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    "conv": (B,K-1,CC)}, advanced IN PLACE.  Returns (out (B,1,d), cache).
+    Under a context whose model axis divides the heads, on the rank's
+    heads (see the module docstring)."""
+    ctx, w, di, h = _layout(params, cfg)
+    n, p = cfg.ssm_state, cfg.ssm_head_dim
     b = u.shape[0]
-    z, xbc_new, dt_raw = _split_proj(params, cfg, u)          # (B,1,·)
+    z, xbc_new, dt_raw = _split_proj(w, di, n, u if ctx is None else enter(u, ctx, False))
+    conv = cache["conv"]
+    if ctx is not None:                                         # the rank's channels
+        conv = torch.cat([conv[..., ctx.mesh.axis_index(ctx.model_axis) * di:][..., :di],
+                          conv[..., cfg.ssm_d_inner:]], -1)
     # causal conv over [cached K-1 inputs ++ new input]; cat makes a new
     # tensor, so the shifted copy below reads the old window
-    window = torch.cat([cache["conv"].to(u.dtype), xbc_new], dim=1)   # (B,K,CC)
-    conv_out = torch.einsum("bkc,kc->bc", window, params["conv_w"]) + params["conv_b"]
+    window = torch.cat([conv.to(u.dtype), xbc_new], dim=1)     # (B,K,CC)
+    conv_out = torch.einsum("bkc,kc->bc", window, w["conv_w"]) + w["conv_b"]
     xbc = F.silu(conv_out.float()).to(u.dtype)                # (B,CC)
     x = xbc[..., :di].reshape(b, h, p).float()
     B_ = xbc[..., di:di + n].float()
     C = xbc[..., di + n:].float()
-    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])  # (B,H)
-    A = -torch.exp(params["A_log"])
+    dt = F.softplus(dt_raw[:, 0].float() + w["dt_bias"])       # (B,H)
+    A = -torch.exp(w["A_log"])
 
+    state = cache["ssm"]
+    if ctx is not None:
+        state = state.narrow(1, ctx.mesh.axis_index(ctx.model_axis) * h, h)
     decay = torch.exp(dt * A)[..., None, None]                 # (B,H,1,1)
     upd = (dt[..., None] * x)[..., None] * B_[:, None, None, :]
-    h_new = cache["ssm"].float() * decay + upd                 # (B,H,P,N)
+    h_new = state.float() * decay + upd                        # (B,H,P,N)
     y = (h_new @ C[:, None, :, None])[..., 0]                  # (B,H,P)
-    y = y + x * params["D"][None, :, None]
-    out = _gate_out(params, cfg, y.reshape(b, 1, di), z, u.dtype)
+    y = y + x * w["D"][None, :, None]
+    out = _gate_out(w, cfg, y.reshape(b, 1, di), z, u.dtype, ctx)
+    if ctx is not None:
+        out = leave(out, ctx, False)
+        h_new = whole_of(h_new, ctx, 1)
     cache["ssm"].copy_(h_new)
-    cache["conv"].copy_(window[:, 1:])
+    cache["conv"].copy_(_whole_channels(window[:, 1:], di, ctx))
     return out, cache

@@ -39,11 +39,23 @@ expert-parallel path and the slot decodes the sequence-sharded ones
 (``models/blocks.py``, ``models/attention.py``).  ``ctx.paired_lg`` and
 ``ctx.unroll`` have no effect: the reference pairs (local, global) layers
 to keep a runtime flag out of its scan, and the port's loop already gives
-each layer its own static flag, so its stack is the paired stack.  The
-reference's sharding constraints on the residual stream move no value and
-are left out; ``distributed/sharding.py`` keeps their choice of layout.
-Stored weights and caches (``distributed/sharding.py``'s store) are
-gathered whole where they are used: a layer's in its block
+each layer its own static flag, so its stack is the paired stack.  Every
+layer computes on its "model" blocks (the model axis of
+``distributed/context.py``).  Where the reference's ``_seq_constraint``
+pins the residual stream to the sequence over "model" (``seq_spec``: a
+multi-token call whose sequence divides the axis, ``ctx.seq_parallel``),
+the stack runs with ``ShardCtx.seq_blocks``: the embedding's output is
+reduce-scattered to the rank's sequence block, the residual stays that
+block between blocks, and the head gathers it back (whisper's encoder and
+decoder loops too, each by its own length).
+The embedding looks up the rank's vocab rows, the others masked to
+0, and sums over "model" (where the vocab does not divide the axis it
+looks up the rank's block of ``d`` and gathers it); the head computes the
+logits on the rank's vocab block (where it does not divide, on the rank's
+block of ``d``, summed) and returns them whole, or as the block
+(``VocabBlock``, ``vocab_blocks=True``) for the vocab-parallel loss of
+``launch/steps.py``.  Stored weights and caches (``distributed/sharding.py``'s
+store) are gathered where they are used: a layer's in its layers
 (``models/blocks.py``), the embedding, the final norm and whisper's
 encoder norm and memory here.  Under batch blocks (``ShardCtx.batch_blocks``:
 the steps of ``launch/steps.py`` given a stored batch) every activation is
@@ -53,22 +65,34 @@ cache opens to the rank's rows (``context.gather_rows``).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as devlib
-from repro_torch.distributed.context import (Stored, current_ctx, gather, gather_rows,
-                                             gather_tree, shard_ctx, write_back)
+from repro_torch.distributed.context import (Stored, block_of, check_cache, current_ctx,
+                                             gather, gather_rows, gather_tree,
+                                             reduce_from_model, scatter_seq, shard_ctx,
+                                             whole_of, write_back)
+from repro_torch.distributed.sharding import leaf_spec, model_block, model_dim, seq_spec
 from repro_torch.models import blocks as B
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (embed_apply, init_embed, init_rms_norm,
-                                       rms_norm, unembed_apply)
+from repro_torch.models.layers import (embed_apply, enter, init_embed, init_rms_norm,
+                                       residual_norm, rms_norm, softcap, unembed_apply)
 from repro_torch.models.moe import ExpertPlacement
+from repro_torch.tree import leaves
+
+
+class VocabBlock(NamedTuple):
+    """Logits on this rank's block of the vocabulary: ``local`` (B, S,
+    V / tp) f32 holds the logits of tokens [start, start + V / tp)."""
+    local: torch.Tensor
+    start: int
 
 
 def check_paged(cfg: ModelConfig) -> None:
@@ -355,9 +379,17 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+_BUFFERS = frozenset(getattr(torch.ops.aten, name) for name in (
+    "empty", "new_empty", "empty_like", "clone", "copy_"))
+
+
 def _save_all(ctx, op, *args, **kwargs):
     """Any policy but "none" and "dots": keep everything (the reference's
-    ``everything_saveable``)."""
+    ``everything_saveable``) but the buffers a collective writes in place
+    and the collectives themselves, which the recomputation runs again (a
+    kept buffer would be handed back already written)."""
+    if op.overloadpacket in _BUFFERS or op.namespace == "c10d":
+        return CheckpointPolicy.PREFER_RECOMPUTE
     return CheckpointPolicy.MUST_SAVE
 
 
@@ -404,15 +436,68 @@ def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, bloc
     return x, _agg_aux(auxs)
 
 
-def _head(params, cfg: ModelConfig, x):
-    x = rms_norm(x, gather(params["final_norm"]["scale"]), cfg.norm_eps)
-    w = gather(params["embed"]["embedding"] if cfg.tie_embeddings
-               else params["embed"]["unembedding"])
-    return unembed_apply({"unembedding": w}, x, cfg.final_logit_softcap)
+def _vocab_weight(params, cfg: ModelConfig, name: str):
+    """(the embedding or unembedding as the rank computes on it, the dim
+    its block cuts over "model" or None) under the active context."""
+    ctx = current_ctx()
+    w = params["embed"][name]
+    dim = model_dim(leaf_spec(w, ("embed", name), cfg, ctx), ctx)
+    return (gather(w) if dim is None else model_block(w, dim, ctx)), dim
 
 
-def _embed(params, tokens):
-    return embed_apply(gather_tree(params["embed"]), tokens)
+def _head(params, cfg: ModelConfig, x, vocab_blocks: bool = False):
+    """The final norm and the unembedding: logits (B, S, V) f32, whole
+    over "model"; under a context with ``vocab_blocks`` and a vocab that
+    divides the model axis, the rank's block (``VocabBlock``)."""
+    ctx = current_ctx()
+    name = "embedding" if cfg.tie_embeddings else "unembedding"
+    if ctx is None:
+        x = rms_norm(x, gather(params["final_norm"]["scale"]), cfg.norm_eps)
+        return unembed_apply({"unembedding": gather(params["embed"][name])}, x,
+                             cfg.final_logit_softcap)
+    x = residual_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    seq = ctx.seq_blocks
+    w, dim = _vocab_weight(params, cfg, name)
+    if dim == 0:                                         # the rank's vocab rows
+        local = unembed_apply({"unembedding": w}, enter(x, ctx, seq), cfg.final_logit_softcap)
+        if vocab_blocks:
+            return VocabBlock(local, ctx.mesh.axis_index(ctx.model_axis) * w.shape[0])
+        return whole_of(local, ctx, 2)
+    x = whole_of(x, ctx, 1) if seq else x
+    if dim is None:
+        return unembed_apply({"unembedding": w}, x, cfg.final_logit_softcap)
+    # the rank's block of d, the partial logits summed over "model"
+    part = torch.einsum("...d,vd->...v", block_of(x, ctx, 2), w).float()
+    return softcap(reduce_from_model(part, ctx), cfg.final_logit_softcap)
+
+
+def _embed(params, cfg: ModelConfig, tokens, seq: bool = False):
+    """The token embeddings, under a context in the residual layout (the
+    rank's sequence block when ``seq``)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return embed_apply(gather_tree(params["embed"]), tokens)
+    w, dim = _vocab_weight(params, cfg, "embedding")
+    if dim == 0:                                         # the rank's vocab rows
+        rows = w.shape[0]
+        ids = tokens.long() - ctx.mesh.axis_index(ctx.model_axis) * rows
+        mine = (ids >= 0) & (ids < rows)
+        e = w[ids.clamp(0, rows - 1)] * mine[..., None].to(w.dtype)
+        return scatter_seq(e, ctx, 1) if seq else reduce_from_model(e, ctx)
+    e = w[tokens]
+    if dim is not None:                                  # the rank's block of d
+        e = whole_of(e, ctx, 2)
+    return block_of(e, ctx, 1) if seq else e
+
+
+def _seq_ctx(s: int):
+    """The active context with ``seq_blocks`` set where the reference's
+    ``_seq_constraint`` pins a residual stream of ``s`` positions
+    (``sharding.seq_spec``); None without a context."""
+    ctx = current_ctx()
+    if ctx is None:
+        return None
+    return dataclasses.replace(ctx, seq_blocks=seq_spec(ctx, (1, s, 1)) is not None)
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -420,51 +505,92 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
 
 
 def _forward_encdec(params, cfg: ModelConfig, tokens, frames, cache, cache_pos,
-                    decode: bool):
+                    decode: bool, vocab_blocks: bool = False):
     """whisper: the encoder over the stub frame embeddings (prefill), then
     the decoder with cross-attention over its memory.  Decode reads the
-    memory from the cache; prefill with a cache stores it there."""
+    memory from the cache; prefill with a cache stores it there.  Under a
+    context each loop's residual is the rank's sequence block where
+    ``seq_spec`` splits it; the memory is whole over "model"."""
     if decode:
         memory = gather_rows(cache["memory"])
     else:
-        x = frames.to(cfg.adtype)
-        for i in range(cfg.num_encoder_layers):
-            x = B.encoder_block_full(_layer(params["enc_blocks"], i), cfg, x)
-        memory = rms_norm(x, gather(params["enc_final_norm"]["scale"]), cfg.norm_eps)
-    x = _embed(params, tokens)
-    b, s, _ = x.shape
-    positions = None if decode else _positions(b, s, x.device)
-    layers = cache["layers"] if cache is not None else None
-    for l in range(cfg.num_layers):
-        p = _layer(params["blocks"], l)
-        c = _layer(layers, l) if layers is not None else None
-        if decode:
-            x, _ = B.cross_block_decode(p, cfg, x, c, cache_pos, memory)
-        else:
-            x, _ = _unit(cfg, B.cross_block_full, p, cfg, x, positions, memory, c)
+        with shard_ctx(_seq_ctx(frames.shape[1])):
+            memory = _encode(params, cfg, frames)
+    with shard_ctx(_seq_ctx(tokens.shape[1])):
+        ctx = current_ctx()
+        x = _embed(params, cfg, tokens, ctx is not None and ctx.seq_blocks)
+        b, s = tokens.shape
+        positions = None if decode else _positions(b, s, x.device)
+        layers = cache["layers"] if cache is not None else None
+        for l in range(cfg.num_layers):
+            p = _layer(params["blocks"], l)
+            c = _layer(layers, l) if layers is not None else None
+            if decode:
+                x, _ = B.cross_block_decode(p, cfg, x, c, cache_pos, memory)
+            else:
+                x, _ = _unit(cfg, B.cross_block_full, p, cfg, x, positions, memory, c)
+        logits = _head(params, cfg, x, vocab_blocks)
     if cache is not None and not decode:
         if isinstance(cache["memory"], Stored):
             write_back(cache["memory"], memory)
         else:
             cache["memory"] = memory
-    return _head(params, cfg, x), cache, {}
+    return logits, cache, {}
+
+
+def _encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+    """whisper's encoder: its memory (B, enc_len, d), whole over "model"."""
+    ctx = current_ctx()
+    seq = ctx is not None and ctx.seq_blocks
+    x = frames.to(cfg.adtype)
+    x = block_of(x, ctx, 1) if seq else x
+    for i in range(cfg.num_encoder_layers):
+        x = B.encoder_block_full(_layer(params["enc_blocks"], i), cfg, x)
+    x = whole_of(x, ctx, 1) if seq else x
+    return rms_norm(x, gather(params["enc_final_norm"]["scale"]), cfg.norm_eps)
 
 
 def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
             vision_embeds: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None, placements=None,
-            dispatch_mode: str = "dense", stats: bool = False):
+            dispatch_mode: str = "dense", stats: bool = False,
+            vocab_blocks: bool = False):
     """Full-sequence forward (train-forward with cache=None, prefill with a
     cache, which is written in place).  For a VLM, ``vision_embeds``
     (B, P, d) precede the token embeddings, cast to their dtype, and the
     positions, logits and cache cover the P + S positions; whisper takes
-    ``frames`` (B, enc_len, d).  Returns (logits (B,P+S,V) f32, cache, aux)."""
+    ``frames`` (B, enc_len, d).  Returns (logits (B,P+S,V) f32, cache, aux);
+    ``vocab_blocks`` asks for the rank's vocab block under a context
+    (``_head``)."""
+    _check_caches(cache)
     if cfg.is_encoder_decoder:
-        return _forward_encdec(params, cfg, tokens, frames, cache, None, False)
-    x = _embed(params, tokens)
-    if cfg.family == "vlm" and vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], dim=1)
-    b, s, _ = x.shape
+        return _forward_encdec(params, cfg, tokens, frames, cache, None, False, vocab_blocks)
+    vlm = cfg.family == "vlm" and vision_embeds is not None
+    s = tokens.shape[1] + (vision_embeds.shape[1] if vlm else 0)
+    with shard_ctx(_seq_ctx(s)):
+        return _forward(params, cfg, tokens, cache, vision_embeds if vlm else None,
+                        placements, dispatch_mode, stats, vocab_blocks)
+
+
+def _check_caches(cache) -> None:
+    """Under batch blocks refuse a whole cache before any collective runs
+    (``context.check_cache``)."""
+    if cache is not None:
+        for leaf in leaves(cache):
+            check_cache(leaf)
+
+
+def _forward(params, cfg: ModelConfig, tokens, cache, vision_embeds, placements,
+             dispatch_mode: str, stats: bool, vocab_blocks: bool):
+    ctx = current_ctx()
+    seq = ctx is not None and ctx.seq_blocks
+    if vision_embeds is None:
+        x = _embed(params, cfg, tokens, seq)
+    else:
+        x = torch.cat([vision_embeds.to(cfg.adtype), _embed(params, cfg, tokens)], dim=1)
+        x = block_of(x, ctx, 1) if seq else x
+    b, s = x.shape[0], tokens.shape[1] + (0 if vision_embeds is None
+                                          else vision_embeds.shape[1])
     positions = _positions(b, s, x.device)
     if cfg.is_ssm or cfg.is_hybrid:
         for p, c, is_attn in _ssm_layers(params, cfg, cache):
@@ -473,14 +599,14 @@ def forward(params, cfg: ModelConfig, tokens: torch.Tensor, *, cache=None,
                                 False, None, "dense", False)
             else:
                 x, _ = _unit(cfg, B.mamba_block_full, p, cfg, x, c)
-        return _head(params, cfg, x), cache, {}
+        return _head(params, cfg, x, vocab_blocks), cache, {}
 
     def block(p, x, c, local, is_moe, plc, st):
         return B.attn_block_full(p, cfg, x, positions, local, c, is_moe, plc,
                                  dispatch_mode, st)
 
     x, aux = _run_stack(params, cfg, x, cache, placements, stats, block)
-    return _head(params, cfg, x), cache, aux
+    return _head(params, cfg, x, vocab_blocks), cache, aux
 
 
 def forward_train(params, cfg: ModelConfig, tokens, **kw):
@@ -502,11 +628,12 @@ def decode_step(params, cfg: ModelConfig, token, cache, cache_pos, *,
     token: (B, 1) int; cache: ``init_cache``'s tree, updated IN PLACE;
     cache_pos: (B,) next write position per row; ``mla_absorb`` picks MLA's
     latent-space decode.  Returns (logits (B,V), cache, aux)."""
+    _check_caches(cache)
     if cfg.is_encoder_decoder:
         logits, cache, aux = _forward_encdec(params, cfg, token, None, cache,
                                              cache_pos, True)
         return logits[:, -1], cache, aux
-    x = _embed(params, token)
+    x = _embed(params, cfg, token)
     if cfg.is_ssm or cfg.is_hybrid:
         for p, c, is_attn in _ssm_layers(params, cfg, cache):
             if is_attn:
@@ -535,7 +662,7 @@ def decode_step_paged(params, cfg: ModelConfig, token, pages, block_tables,
     int32; lengths: (B,) tokens resident per row.  Returns (logits (B,V),
     pages, aux)."""
     check_paged(cfg)
-    x = _embed(params, token)
+    x = _embed(params, cfg, token)
 
     def block(p, x, c, local, is_moe, plc, st):
         return B.attn_block_decode_paged(p, cfg, x, c, block_tables, lengths, local,

@@ -48,7 +48,7 @@ import torch
 
 from repro_torch.distributed.context import P, ShardCtx, batch_axis, divides, shard_map
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import ffn_apply
+from repro_torch.models.layers import ffn_layer
 from repro_torch.models.moe import (ExpertPlacement, _capacity, _combine,
                                     _dispatch_tables, _expert_ffn, _token_table,
                                     router_aux, router_probs, top_k_gating)
@@ -83,7 +83,8 @@ def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
                       return_stats: bool = False):
     """x: (B, S, d), whole on every rank (under batch blocks, the rank's
     block).  Returns (y, aux) like ``moe_apply``; ``dropped_frac`` is the
-    constant 0.0, as in the reference."""
+    constant 0.0, as in the reference.  The shared experts' leaves may be
+    stored (``layers.ffn_layer`` takes them on their "model" blocks)."""
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.moe_top_k
     mesh, tp = ctx.mesh, ctx.tp
@@ -199,7 +200,8 @@ def moe_apply_sharded(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     y = y.reshape(b * s, d)
     if cfg.num_shared_experts > 0:
-        y = y + ffn_apply(params["shared"], xf)
+        # the shared experts: the dense FFN's rules, on the tokens whole
+        y = y + ffn_layer(params["shared"], cfg, xf, ("moe", "shared"), seq=False)
 
     aux = router_aux(probs, logits, expert_ids, k, ctx, return_stats)
     if return_stats:

@@ -55,3 +55,38 @@ def test_train_step_under_ctx_matches_reference(mesh, arch):
     _assert_trees(tst.m, jst.m)
     assert _port_spec_tuples(pspecs) == _spec_tuples(jpspecs)
     assert _port_spec_tuples(ospecs.m) == _spec_tuples(jpspecs)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-30b-a3b", "mamba2-370m"])
+def test_remat_policies_under_the_model_axis(mesh, arch):
+    """On the stored params and a stored batch (the residual stream the
+    rank's sequence block, every layer on its "model" blocks, so each
+    checkpointed unit issues collectives into buffers it allocates), the
+    gradients under remat_policy "none", "dots" and "full" equal those
+    without remat: the recomputation runs the collectives again and keeps
+    no buffer one of them wrote."""
+    from repro_torch.distributed.context import gather, shard_ctx
+    from repro_torch.distributed.sharding import input_shardings, param_specs, place
+    from repro_torch.models import model as TM
+    from repro_torch.tree import leaves
+    cfg = get_smoke_config(arch)
+    ctx = TS.make_ctx(mesh)
+    params = place(TM.init_params(cfg, seed=0, device="cpu"), param_specs(cfg, ctx), mesh)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(0, cfg.vocab_size, (B, SEQ)))
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    bctx, lb = TS.batch_view(ctx, place(batch, input_shardings(
+        cfg, ctx, ShapeCell("t", SEQ, B, "train"), batch), mesh))
+
+    def grads(policy):
+        c = cfg if policy is None else cfg.replace(remat=True, remat_policy=policy)
+
+        def loss(p, b):
+            logits, _ = TM.forward_train(p, c, b["tokens"], vocab_blocks=True)
+            return TS.cross_entropy(logits, b["labels"])
+        with shard_ctx(bctx):
+            return [gather(g) for g in leaves(TS.value_and_grad(loss, params, lb, ctx=bctx)[1])]
+
+    want = grads(None)
+    for policy in ("none", "dots", "full"):
+        for got, w in zip(grads(policy), want):
+            torch.testing.assert_close(got, w, rtol=0, atol=0)
