@@ -1254,6 +1254,7 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
     calls, checks their logits are finite, and times the backend's calls.
     ``after_decode(eng)`` runs right after each decode step is enqueued."""
     from repro_torch import kernels as K
+    from repro_torch import tracing
     from repro_torch.models import model as M
 
     seen = {"prefill": 0, "decode": 0, "finite": True}
@@ -1313,6 +1314,7 @@ def _serve(torch, eng, reqs, decode_fn: str, label: str, *, trace: bool = False,
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
+            tracing.last()                  # the engine's tracing session ends with it
         M.prefill = orig_prefill
         setattr(M, decode_fn, orig_decode)
 

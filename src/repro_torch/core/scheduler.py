@@ -1,5 +1,6 @@
 """Port copy of ``repro.core.scheduler``: host-side Python with no framework in it,
-kept line for line so both packages make byte-identical decisions.
+kept line for line so both packages make byte-identical decisions; only the
+port records spans (``repro_torch.tracing``, on while a profiler runs).
 
 SchedulerCore: the backend-agnostic per-engine scheduling state machine.
 
@@ -51,6 +52,7 @@ from typing import Dict, List, Optional, Protocol, Sequence, Set, Tuple
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core.predictor import make_predictor
 from repro_torch.core.preempt import (eligible_victims, reset_for_resume,
                                 select_victim)
@@ -565,7 +567,8 @@ class SchedulerCore:
         first token like any fresh admit)."""
         handle, stats = self.backend.start(r, now)
         if stats is not None and self.expert is not None:
-            self.expert.observe(stats)
+            with tracing.span("expert.observe"):
+                self.expert.observe(stats)
         self.running.append(RunningSeq(
             r, handle, admit_time=now if admit_time is None else admit_time))
         r.engine_id = self.engine_id
@@ -590,7 +593,8 @@ class SchedulerCore:
         (end timestamp, requests finished this step)."""
         if not self.healthy:
             return now, []
-        admitted, victims = self.schedule(now)
+        with tracing.span("schedule"):
+            admitted, victims = self.schedule(now)
         # the decode batch: admitted in a PRIOR step and not evicted above
         # (schedule() runs first, so victims never decode after losing KV)
         decoding = list(self.running)
@@ -637,7 +641,8 @@ class SchedulerCore:
             eos, stats = self.backend.decode(
                 [(seq.handle, seq.r) for seq in decoding], now)
             if stats is not None and self.expert is not None:
-                self.expert.observe(stats)
+                with tracing.span("expert.observe"):
+                    self.expert.observe(stats)
             cap = self.backend.max_ctx_tokens
             for seq in decoding:
                 r = seq.r
@@ -668,9 +673,11 @@ class SchedulerCore:
         # expert-level tick (Alg. 3 lines 6-9)
         self.steps += 1
         if self.expert is not None:
-            new_perm = self.expert.tick()
+            with tracing.span("expert.tick"):
+                new_perm = self.expert.tick()
             if new_perm is not None:
-                self.backend.apply_placement(new_perm)
+                with tracing.span("expert.relocate"):
+                    self.backend.apply_placement(new_perm)
         return end, finished
 
     # ------------------------------------------------------------------ fault tolerance

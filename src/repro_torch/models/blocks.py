@@ -28,6 +28,7 @@ import contextlib
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed.context import (block_of, current_ctx, gather_tree, opened,
                                              whole_of)
 from repro_torch.models import attention as attn
@@ -106,22 +107,27 @@ def _norm(p: dict, name: str, cfg: ModelConfig, x):
 
 def _ffn_half(p: dict, cfg: ModelConfig, x, is_moe_layer: bool, placement,
               dispatch_mode: str, stats: bool):
-    h = _norm(p, "ffn_norm", cfg, x)
-    aux = {}
-    if is_moe_layer:
-        y, aux = _moe(p["moe"], cfg, h, placement, dispatch_mode, stats)
-    else:
-        y = ffn_layer(p["ffn"], cfg, h)
-    return x + y, aux
+    """The block's second half: pre-norm, MoE or FFN, residual; its span
+    (``moe`` or ``ffn``) holds all three."""
+    with tracing.span("moe" if is_moe_layer else "ffn"):
+        h = _norm(p, "ffn_norm", cfg, x)
+        aux = {}
+        if is_moe_layer:
+            y, aux = _moe(p["moe"], cfg, h, placement, dispatch_mode, stats)
+        else:
+            y = ffn_layer(p["ffn"], cfg, h)
+        return x + y, aux
 
 
 def attn_block_full(p: dict, cfg: ModelConfig, x, positions, is_local: bool, cache,
                     is_moe_layer: bool, placement, dispatch_mode: str, stats: bool):
     p = _weights(p)
-    h = _norm(p, "attn_norm", cfg, x)
-    with _opened(cache) as c:
-        a, _ = attn.attention_full(p["attn"], cfg, h, positions, is_local, c)
-    x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
+    with tracing.span("attention"):
+        h = _norm(p, "attn_norm", cfg, x)
+        with _opened(cache) as c:
+            a, _ = attn.attention_full(p["attn"], cfg, h, positions, is_local, c)
+        x = x + a
+    x, aux = _ffn_half(p, cfg, x, is_moe_layer, placement, dispatch_mode, stats)
     return x, cache, aux
 
 
@@ -130,10 +136,12 @@ def attn_block_decode(p: dict, cfg: ModelConfig, x, cache, cache_pos,
                       dispatch_mode: str, stats: bool, mla_absorb: bool = False):
     """One decode step of a block against one layer's slot cache."""
     p = _weights(p)
-    h = _norm(p, "attn_norm", cfg, x)
-    a, new_cache = attn.attention_decode(p["attn"], cfg, h, cache, cache_pos, is_local,
-                                         mla_absorb=mla_absorb)
-    x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
+    with tracing.span("attention"):
+        h = _norm(p, "attn_norm", cfg, x)
+        a, new_cache = attn.attention_decode(p["attn"], cfg, h, cache, cache_pos, is_local,
+                                             mla_absorb=mla_absorb)
+        x = x + a
+    x, aux = _ffn_half(p, cfg, x, is_moe_layer, placement, dispatch_mode, stats)
     return x, new_cache, aux
 
 
@@ -145,10 +153,12 @@ def attn_block_decode_paged(p: dict, cfg: ModelConfig, x, cache, block_tables,
     only: the paged layout rejects the other families up front); its
     attention runs whole."""
     p = _weights(p)
-    h = _norm(p, "attn_norm", cfg, x)
-    a, new_cache = attn.gqa_decode_paged(gather_tree(p["attn"]), cfg, h, cache, block_tables,
-                                         lengths, is_local, use_kernel)
-    x, aux = _ffn_half(p, cfg, x + a, is_moe_layer, placement, dispatch_mode, stats)
+    with tracing.span("attention"):
+        h = _norm(p, "attn_norm", cfg, x)
+        a, new_cache = attn.gqa_decode_paged(gather_tree(p["attn"]), cfg, h, cache,
+                                             block_tables, lengths, is_local, use_kernel)
+        x = x + a
+    x, aux = _ffn_half(p, cfg, x, is_moe_layer, placement, dispatch_mode, stats)
     return x, new_cache, aux
 
 

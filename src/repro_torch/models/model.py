@@ -74,6 +74,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import device as devlib
+from repro_torch import tracing
 from repro_torch.distributed.context import (Stored, block_of, check_cache, current_ctx,
                                              gather, gather_rows, gather_tree,
                                              reduce_from_model, scatter_seq, shard_ctx,
@@ -428,8 +429,12 @@ def _run_stack(params, cfg: ModelConfig, x, cache, placements, stats: bool, bloc
     pstack = _placement_stack(cfg, placements, x.device)
     auxs, n_moe = [], 0
     for p, c, local, is_moe in _attn_layers(params, cfg, cache):
-        plc = _placement(cfg, pstack, n_moe) if is_moe else None
-        x, _, aux = _unit(cfg, block, p, x, c, local, is_moe, plc, stats and is_moe)
+        with tracing.span("layer"):
+            plc = None
+            if is_moe:
+                with tracing.span("layer.placement"):
+                    plc = _placement(cfg, pstack, n_moe)
+            x, _, aux = _unit(cfg, block, p, x, c, local, is_moe, plc, stats and is_moe)
         if is_moe:
             auxs.append(aux)
             n_moe += 1

@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.kernels.ops import expert_ffn, route_replicated
 from repro_torch.kernels.ref import top_k
 from repro_torch.models.config import ModelConfig
@@ -228,51 +229,59 @@ def moe_apply(params: dict, cfg: ModelConfig, x: torch.Tensor,
                          "blocks take 'dense' or 'gather'")
     n_all = t * ctx.dp if blocks else t                            # the global tokens
 
-    logits = xf.float() @ params["w_router"]
-    probs = router_probs(logits)                                   # logical space
-    ns = placement.num_slots                                       # S = E + R
-    cap = _capacity(cfg, n_all)
-    if dispatch_mode == "fused":
-        gates, expert_ids, slot_idx, pos = route_replicated(
-            logits, k, placement.replica_slots, placement.replica_count, ns)
-        keep = pos < cap
-    else:
-        gates, expert_ids = top_k_gating(probs, k)                 # (T,k) logical
-        first = ctx.mesh.axis_index(ctx.batch_axes) * t if blocks else 0
-        slot_idx = placement.dispatch_slots(expert_ids, first)     # physical slots
-        pos, keep = _dispatch_tables(slot_idx, ns, cap)
-        if blocks:
-            # kept by the global rule; the expert FFN is row by row, so the
-            # block's kept tokens take buffers of their own, at most t a slot
-            keep = pos + _earlier_blocks(slot_idx, ns, ctx) < cap
-            cap = min(cap, t)
-    gates = gates.to(x.dtype)
+    if dispatch_mode not in ("dense", "gather", "fused"):
+        raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
+    with tracing.span("route"):
+        logits = xf.float() @ params["w_router"]
+        probs = router_probs(logits)                               # logical space
+        ns = placement.num_slots                                   # S = E + R
+        cap = _capacity(cfg, n_all)
+        if dispatch_mode == "fused":
+            gates, expert_ids, slot_idx, pos = route_replicated(
+                logits, k, placement.replica_slots, placement.replica_count, ns)
+            keep = pos < cap
+        else:
+            gates, expert_ids = top_k_gating(probs, k)             # (T,k) logical
+            first = ctx.mesh.axis_index(ctx.batch_axes) * t if blocks else 0
+            slot_idx = placement.dispatch_slots(expert_ids, first)  # physical slots
+            pos, keep = _dispatch_tables(slot_idx, ns, cap)
+            if blocks:
+                # kept by the global rule; the expert FFN is row by row, so the
+                # block's kept tokens take buffers of their own, at most t a slot
+                keep = pos + _earlier_blocks(slot_idx, ns, ctx) < cap
+                cap = min(cap, t)
+        gates = gates.to(x.dtype)
 
     if dispatch_mode == "dense":
-        oh_e = _one_hot(slot_idx, ns, x.dtype) * keep[..., None]
-        oh_c = _one_hot(pos, cap, x.dtype)
-        dispatch = torch.einsum("tke,tkc->tec", oh_e, oh_c)
-        combine = torch.einsum("tke,tkc,tk->tec", oh_e, oh_c, gates)
-        xe = torch.einsum("tec,td->ecd", dispatch, xf)
-        ye = _expert_ffn(params, xe)
-        y = torch.einsum("tec,ecd->td", combine, ye)
-    elif dispatch_mode in ("gather", "fused"):
-        table = _token_table(slot_idx, pos, keep, ns, cap)          # (S, C)
-        valid = table < t
-        src = table.clamp(max=t - 1).long()
-        xe = torch.where(valid[..., None], xf[src], 0).to(x.dtype)
-        if dispatch_mode == "fused":
-            ye = expert_ffn(params, xe)                            # 3x moe_gemm
-        else:
+        with tracing.span("dispatch"):
+            oh_e = _one_hot(slot_idx, ns, x.dtype) * keep[..., None]
+            oh_c = _one_hot(pos, cap, x.dtype)
+            dispatch = torch.einsum("tke,tkc->tec", oh_e, oh_c)
+            combine = torch.einsum("tke,tkc,tk->tec", oh_e, oh_c, gates)
+            xe = torch.einsum("tec,td->ecd", dispatch, xf)
+        with tracing.span("experts"):
             ye = _expert_ffn(params, xe)
-        # a dropped selection reads the zero row S*C
-        row_idx = torch.where(keep, slot_idx.long() * cap + pos.long(), ns * cap)
-        y = _combine(ye, row_idx, gates, x.dtype)
+        with tracing.span("combine"):
+            y = torch.einsum("tec,ecd->td", combine, ye)
     else:
-        raise ValueError(f"unknown dispatch_mode {dispatch_mode!r}")
+        with tracing.span("dispatch"):
+            table = _token_table(slot_idx, pos, keep, ns, cap)      # (S, C)
+            valid = table < t
+            src = table.clamp(max=t - 1).long()
+            xe = torch.where(valid[..., None], xf[src], 0).to(x.dtype)
+        with tracing.span("experts"):
+            if dispatch_mode == "fused":
+                ye = expert_ffn(params, xe)                        # 3x moe_gemm
+            else:
+                ye = _expert_ffn(params, xe)
+        with tracing.span("combine"):
+            # a dropped selection reads the zero row S*C
+            row_idx = torch.where(keep, slot_idx.long() * cap + pos.long(), ns * cap)
+            y = _combine(ye, row_idx, gates, x.dtype)
 
     if cfg.num_shared_experts > 0:
-        y = y + ffn_apply(params["shared"], xf)
+        with tracing.span("experts.shared"):
+            y = y + ffn_apply(params["shared"], xf)
 
     aux = router_aux(probs, logits, expert_ids, k, ctx, return_stats)
     if return_stats:

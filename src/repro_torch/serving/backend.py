@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as devlib
+from repro_torch import tracing
 from repro_torch.core.types import Request
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
@@ -123,6 +124,10 @@ class TorchBackend:
     # ------------------------------------------------------------------ Backend protocol
     @torch.no_grad()
     def start(self, r: Request, now: float) -> Tuple[int, Optional[np.ndarray]]:
+        with tracing.span("prefill"):
+            return self._prefill(r)
+
+    def _prefill(self, r: Request) -> Tuple[int, Optional[np.ndarray]]:
         self._sync_placement()
         plen = min(r.prompt_len, self.max_seq - 1)
         if r.prompt_tokens is not None:
@@ -143,43 +148,59 @@ class TorchBackend:
         bl = _bucket(plen)
         padded = np.zeros(bl, np.int64)
         padded[:plen] = toks
-        slot_cache = M.init_cache(self.cfg, 1, bl, device=self.device)
-        logits, slot_cache, aux = M.prefill(
-            self.params, self.cfg, torch.as_tensor(padded, device=self.device)[None],
-            slot_cache, placements=self._placements(),
-            dispatch_mode=self.dispatch_mode)
-        if self.kv_layout == "paged":
-            self.kv.write_prefill(slot, slot_cache)
-        else:
-            write_slot(self.kv.cache, slot_cache, slot, self.kv.write_axes)
+        with tracing.span("prefill.model"):
+            slot_cache = M.init_cache(self.cfg, 1, bl, device=self.device)
+            logits, slot_cache, aux = M.prefill(
+                self.params, self.cfg, torch.as_tensor(padded, device=self.device)[None],
+                slot_cache, placements=self._placements(),
+                dispatch_mode=self.dispatch_mode)
+        with tracing.span("prefill.kv_write"):
+            if self.kv_layout == "paged":
+                self.kv.write_prefill(slot, slot_cache)
+            else:
+                write_slot(self.kv.cache, slot_cache, slot, self.kv.write_axes)
         self.slot_req[slot] = r
         self.kv.slot_len[slot] = plen
-        self.slot_last_token[slot] = int(torch.argmax(logits[0, plen - 1]))
-        stats = None
-        if "expert_ids" in aux:
-            stats = aux["expert_ids"].cpu().numpy()[:, :, :plen]
+        with tracing.span("prefill.readback"):
+            self.slot_last_token[slot] = int(torch.argmax(logits[0, plen - 1]))
+            stats = None
+            if "expert_ids" in aux:
+                stats = aux["expert_ids"].cpu().numpy()[:, :, :plen]
         return slot, stats
 
     @torch.no_grad()
     def decode(self, active: Sequence[Tuple[int, Request]], now: float
                ) -> Tuple[Set[int], Optional[np.ndarray]]:
+        with tracing.span("decode"):
+            return self._decode(active)
+
+    def _decode(self, active: Sequence[Tuple[int, Request]]
+                ) -> Tuple[Set[int], Optional[np.ndarray]]:
         self._sync_placement()
-        tokens = torch.as_tensor(self.slot_last_token.astype(np.int64),
-                                 device=self.device)[:, None]
-        pos = self.kv.positions()
-        if self.kv_layout == "paged":
-            for slot, _r in active:
-                self.kv.prepare_append(slot)     # alloc/CoW tail pages
-            logits, _, aux = M.decode_step_paged(
-                self.params, self.cfg, tokens, self.kv.pages, self.kv.device_tables(),
-                pos, placements=self._placements(), stats=self._stats,
-                dispatch_mode=self.dispatch_mode, use_kernel=self.use_kernels)
-        else:
-            logits, _, aux = M.decode_step(
-                self.params, self.cfg, tokens, self.kv.cache, pos,
-                placements=self._placements(), stats=self._stats,
-                dispatch_mode=self.dispatch_mode)
-        nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        tracing.count("decode_rows_live", len(active))
+        tracing.count("decode_rows", self.max_slots)
+        with tracing.span("decode.inputs"):
+            tokens = torch.as_tensor(self.slot_last_token.astype(np.int64),
+                                     device=self.device)[:, None]
+            pos = self.kv.positions()
+            if self.kv_layout == "paged":
+                for slot, _r in active:
+                    self.kv.prepare_append(slot)     # alloc/CoW tail pages
+                tables = self.kv.device_tables()
+            placements = self._placements()
+        with tracing.span("decode.model"):
+            if self.kv_layout == "paged":
+                logits, _, aux = M.decode_step_paged(
+                    self.params, self.cfg, tokens, self.kv.pages, tables, pos,
+                    placements=placements, stats=self._stats,
+                    dispatch_mode=self.dispatch_mode, use_kernel=self.use_kernels)
+            else:
+                logits, _, aux = M.decode_step(
+                    self.params, self.cfg, tokens, self.kv.cache, pos,
+                    placements=placements, stats=self._stats,
+                    dispatch_mode=self.dispatch_mode)
+        with tracing.span("decode.readback"):
+            nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
         eos: Set[int] = set()
         rows = []
         for slot, r in active:
@@ -191,7 +212,8 @@ class TorchBackend:
                 eos.add(r.req_id)
         stats = None
         if "expert_ids" in aux and rows:
-            stats = aux["expert_ids"].cpu().numpy()[:, rows]   # (L, B, 1, K)
+            with tracing.span("decode.stats"):
+                stats = aux["expert_ids"].cpu().numpy()[:, rows]   # (L, B, 1, K)
         return eos, stats
 
     def release(self, handle: int, r: Request) -> None:

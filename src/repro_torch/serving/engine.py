@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import Any, List, Optional
 
+from repro_torch import tracing
 from repro_torch.core.eplb import NullExpertLevel
 from repro_torch.core.gimbal import make_queue, make_rebalancer
 from repro_torch.core.scheduler import SchedulerCore
@@ -84,8 +85,12 @@ class Engine:
 
     def step(self, now: float) -> List[Request]:
         """One continuous-batching iteration.  Returns requests finished this
-        step (all decisions in SchedulerCore.step)."""
-        _, finished = self.core.step(now)
+        step (all decisions in SchedulerCore.step).  A step first reads
+        whether a profiler records (``tracing.poll``); while one does, the
+        step keeps its spans and counters."""
+        tracing.poll()
+        with tracing.span("step"):
+            _, finished = self.core.step(now)
         return finished
 
     def drain_all(self, migrate: bool = False) -> List[Request]:
