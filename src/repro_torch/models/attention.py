@@ -14,7 +14,8 @@
 * MLA (deepseek-v2): a compressed cache {"ckv": (B,S,R), "krope": (B,S,Dr)};
   prefill decompresses and attends, decode either decompresses every
   cached step (``absorb=False``) or scores in latent space
-  (``absorb=True``).  Plain PyTorch, as the reference computes it.
+  (``absorb=True``, what the serving backend runs).  Plain PyTorch, as the
+  reference computes it.
 
 Conventions kept from the reference: the finite ``NEG_INF`` mask, the
 ``CHUNK_THRESHOLD`` / ``Q_CHUNK`` switch to chunked prefill, the kernel
@@ -57,6 +58,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import tracing
 from repro_torch.distributed.context import (P, Stored, batch_axis, block_of, check_cache,
                                              copy_to_model, current_ctx, divides, gather,
                                              gather_seq, gather_tree, opened,
@@ -607,6 +609,8 @@ def _mla_full_on(w: dict, cfg: ModelConfig, x, positions, cache) -> torch.Tensor
     dn, dv = cfg.qk_nope_head_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(w, cfg, x, positions)
     ckv, krope = _mla_ckv(w, cfg, x, positions)
+    # naive even where the decode is absorbed: each position is decompressed
+    # once, and S x S attention at head dim dn + dr suits the tensor cores
     if cache is not None:
         s = ckv.shape[1]
         cache["ckv"][:, :s] = ckv.to(cache["ckv"].dtype)
@@ -627,11 +631,20 @@ def mla_decode(params: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
 
     absorb=False: paper-faithful, decompress every cached step, then attend.
     absorb=True: weight-absorbed, scores in latent space; never builds
-    per-head K/V for the cache.  Under a shard context whose model axis
-    divides the cache length, the sequence-sharded decode runs instead.
-    Under a context whose model axis divides the heads, the queries are
-    computed on the rank's heads and made whole for the attention (which
-    takes ``wkv_b`` whole), and ``wo`` runs on the rank's heads."""
+    per-head K/V for the cache.  The same mathematics: ``wkv_b``'s halves
+    reassociated, operands in the activations' dtype, f32 softmax, the
+    same mask.  The serving backend (``TorchBackend``) always decodes
+    absorbed; ``launch.steps``'s decode step follows ``ShardCtx.mla_absorb``
+    (naive by default); the tests and ``chip_smoke.py`` take both.
+
+    Under a shard context whose model axis divides the cache length, the
+    sequence-sharded decode runs instead.  Under a context whose model axis
+    divides the heads, the queries are computed on the rank's heads and made
+    whole for the attention (which takes ``wkv_b`` whole), and ``wo`` runs
+    on the rank's heads."""
+    tracing.count("mla_decode_layers", 1)
+    if absorb:
+        tracing.count("mla_decode_latent", 1)
     dn = cfg.qk_nope_head_dim
     ctx = current_ctx()
     heads = _mode(ctx, cfg.num_heads, x) == "heads"

@@ -55,8 +55,11 @@ class TorchBackend:
                  kv_block_size: int = 16, kv_quant: Optional[str] = None,
                  use_kernels: bool = False, device=None):
         """``use_kernels`` takes paged flash-decode on the paged layout; the
-        slot layout's attention is plain, as in the reference.  The MoE
-        kernels follow ``dispatch_mode="fused"`` on either layout."""
+        slot layout's attention is plain PyTorch.  Unlike the reference's
+        backend, an MLA model decodes in latent space (``mla_decode``'s
+        ``absorb=True``: the same mathematics, with no per-position keys or
+        values built); its prefill decompresses, as the reference's does.
+        The MoE kernels follow ``dispatch_mode="fused"`` on either layout."""
         if kv_layout not in ("slot", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}")
         if kv_quant not in (None, "int8"):
@@ -195,10 +198,12 @@ class TorchBackend:
                     placements=placements, stats=self._stats,
                     dispatch_mode=self.dispatch_mode, use_kernel=self.use_kernels)
             else:
+                # MLA scores in latent space over the compressed cache; GQA
+                # ignores ``mla_absorb``
                 logits, _, aux = M.decode_step(
                     self.params, self.cfg, tokens, self.kv.cache, pos,
                     placements=placements, stats=self._stats,
-                    dispatch_mode=self.dispatch_mode)
+                    dispatch_mode=self.dispatch_mode, mla_absorb=True)
         with tracing.span("decode.readback"):
             nxt = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
         eos: Set[int] = set()

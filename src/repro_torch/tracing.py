@@ -27,8 +27,10 @@ Spans, parent first:
 Counters: ``host_syncs`` by the innermost open span (every call that
 torch's CUDA sync debug mode reports: reads to the host, copies from
 pageable memory, stream syncs; ``torch.cuda.synchronize`` is not among
-them), and ``decode_rows_live`` against ``decode_rows``, the rows a decode
-step computes.
+them), ``decode_rows_live`` against ``decode_rows``, the rows a decode
+step computes, and ``mla_decode_latent`` against ``mla_decode_layers``, the
+MLA decode calls taken in latent space among all of them
+(``models.attention.mla_decode``).
 
 An operator profiles an engine, then puts the profile's idle gaps down to
 the spans open at their instants (``Session.label``) and reads the syncs

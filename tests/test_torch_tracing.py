@@ -21,6 +21,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.types import GimbalConfig, Request
 from repro_torch.models import model as M
 from repro_torch.models import moe as MoE
+from repro_torch.serving.backend import TorchBackend
 from repro_torch.serving.engine import Engine
 
 ARCH = "qwen3-30b-a3b"
@@ -239,3 +240,38 @@ def test_router_still_reached_through_the_module_global(model, monkeypatch):
     _, _, s = _profiled_run(model, lambda eng: calls.append(bool(eng.core.running)))
     assert len(seen) == untraced == len(s.find("route"))
     assert seen.count(MAX_SLOTS) == sum(calls) * cfg.num_layers
+
+
+def _deepseek_backend():
+    """A deepseek-v2 smoke backend on the slot layout, two prompts prefilled."""
+    cfg = get_smoke_config("deepseek-v2-236b")
+    be = TorchBackend(cfg, M.init_params(cfg, 0, device="cpu"), max_slots=MAX_SLOTS,
+                      max_seq=MAX_SEQ, dispatch_mode="fused", device="cpu")
+    rng = np.random.default_rng(5)
+    active = []
+    for i, n in enumerate((7, 19)):
+        r = Request(req_id=i, prompt_len=n, max_new_tokens=8, arrival_time=0.0,
+                    prompt_tokens=rng.integers(0, cfg.vocab_size, n))
+        active.append((be.start(r, 0.0)[0], r))
+    return be, active
+
+
+def test_mla_decode_counters(model, monkeypatch):
+    """Under the profiler a deepseek decode step counts every layer's MLA
+    decode, all in latent space; a qwen3 run counts none; with no profiler
+    neither counter is touched."""
+    be, active = _deepseek_backend()
+    with profile(activities=[ProfilerActivity.CPU]):
+        tracing.poll()
+        be.decode(active, 0.0)
+    c = tracing.last().counters
+    assert c["mla_decode_layers"] == c["mla_decode_latent"] == be.cfg.num_layers
+    _, _, s = _profiled_run(model)
+    assert s.find("decode") and s.counters["decode_rows"] > 0
+    assert "mla_decode_layers" not in s.counters and "mla_decode_latent" not in s.counters
+    counted = []
+    monkeypatch.setattr(tracing.Session, "count",
+                        lambda self, name, n: counted.append(name))
+    before = tracing.last()
+    be.decode(active, 0.1)
+    assert counted == [] and tracing.last() is before and not tracing._on
