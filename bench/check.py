@@ -70,11 +70,11 @@ def _seqs(samples, device):
                              device=device), len(prompt)) for _, prompt, served in samples]
 
 
-def _logit_blocks(h: torch.Tensor, plen: int, g: dict, config: dict, p: Precision):
+def _logit_blocks(h: torch.Tensor, plen: int, g: dict, config: dict, p: Precision, head_):
     """(first row, logits) over the positions that produced served tokens."""
     for a in range(plen - 1, h.shape[0], HEAD_BLOCK):
         b = min(a + HEAD_BLOCK, h.shape[0])
-        yield a - (plen - 1), head(h[a:b], g, config, p)
+        yield a - (plen - 1), head_(h[a:b], g, config, p)
 
 
 def gaps(config: dict, seed: int, samples, device, control: bool = False,
@@ -82,9 +82,11 @@ def gaps(config: dict, seed: int, samples, device, control: bool = False,
     """The served tokens' gaps (``summary``), and with ``control`` the same
     of float8's first tokens under ``control_`` names.  ``drops[i]``: the
     experts the program's decode steps dropped from sample i's rows
-    (``serve.Probe.decode_drops``), which both references follow."""
+    (``serve.Probe.decode_drops``), which both references follow.  The
+    logits are the reference's own ``head`` where it has one."""
     no_tf32()
     ref = spec.reference_module(config)
+    head_ = getattr(ref, "head", head)
     seqs = _seqs(samples, device)
     chosen = None
     if control:
@@ -92,7 +94,7 @@ def gaps(config: dict, seed: int, samples, device, control: bool = False,
         g8 = weights.globals_(config, seed, device, torch.float32)
         chosen = []
         for (_, plen), h in zip(seqs, ref.final_hidden(config, seed, seqs, device, p8, drops)):
-            rows = [lg.argmax(-1) for _, lg in _logit_blocks(h, plen, g8, config, p8)]
+            rows = [lg.argmax(-1) for _, lg in _logit_blocks(h, plen, g8, config, p8, head_)]
             chosen.append(torch.cat(rows))
         del g8
         gc.collect()
@@ -103,7 +105,7 @@ def gaps(config: dict, seed: int, samples, device, control: bool = False,
     for i, ((_, plen), h) in enumerate(zip(seqs, hidden)):
         served = torch.as_tensor(samples[i][2], device=device)
         mine = []
-        for a, lg in _logit_blocks(h, plen, g, config, p32):
+        for a, lg in _logit_blocks(h, plen, g, config, p32, head_):
             rows = torch.arange(lg.shape[0], device=device)
             best = lg.max(-1).values
             mine.append(best - lg[rows, served[a:a + lg.shape[0]]])

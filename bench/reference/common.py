@@ -20,6 +20,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from bench import spec
+
 E4M3_MAX = 448.0
 
 
@@ -126,7 +128,7 @@ def moe(x: torch.Tensor, w: dict, config: dict, p: Precision, capped: int,
 
 def expert_capacity(config: dict, tokens: int) -> int:
     """The configuration's capacity of an expert in a call of ``tokens``."""
-    e = config.get("num_experts", config.get("n_routed_experts"))
+    e = spec.layout_module(config).n_experts(config)
     return capacity(tokens, config["num_experts_per_tok"], e,
                     config["moe_capacity_factor"], config["moe_capacity_multiple"])
 

@@ -17,7 +17,7 @@ from typing import List, Tuple
 
 import torch
 
-from bench import weights
+from bench import spec, weights
 from bench.reference.common import (Precision, attn_scale, causal_attention, ffn, moe,
                                     no_tf32, prompt_capacity, rms_norm, rope)
 
@@ -58,13 +58,14 @@ def final_hidden(config: dict, seed: int, seqs: List[Tuple[torch.Tensor, int]], 
     """As ``qwen3_moe.final_hidden`` (``drops`` by MoE layer: the dense
     prologue has none)."""
     no_tf32()
-    emb = weights.draw(weights.global_leaves(config)[0], seed, None, device).float()
+    lay = spec.layout_module(config)
+    emb = weights.draw(lay.global_leaves(config)[0], seed, None, device).float()
     hs = [emb[t] for t, _ in seqs]
     del emb
     for l in range(config["num_hidden_layers"]):
         w = weights.layer(config, seed, l, device, torch.float32)
-        moe_layer = weights.is_moe_layer(config, l)
-        m = l - weights.first_dense(config)
+        moe_layer = lay.is_moe_layer(config, l)
+        m = l - lay.first_dense(config)
         hs = [block(h, w, config, p, n, moe_layer,
                     None if drops is None or not moe_layer else drops[i].get(m))
               for i, (h, (_, n)) in enumerate(zip(hs, seqs))]

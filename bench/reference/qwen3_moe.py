@@ -13,7 +13,7 @@ from typing import List, Tuple
 
 import torch
 
-from bench import weights
+from bench import spec, weights
 from bench.reference.common import (Precision, attn_scale, causal_attention, moe, no_tf32,
                                     prompt_capacity, rms_norm, rope)
 
@@ -43,7 +43,8 @@ def final_hidden(config: dict, seed: int, seqs: List[Tuple[torch.Tensor, int]], 
     ``drops[i]`` the decode steps' dropped experts of sequence i by MoE
     layer and position (``common.moe``)."""
     no_tf32()
-    emb = weights.draw(weights.global_leaves(config)[0], seed, None, device).float()
+    emb_leaf = spec.layout_module(config).global_leaves(config)[0]
+    emb = weights.draw(emb_leaf, seed, None, device).float()
     hs = [emb[t] for t, _ in seqs]
     del emb
     for l in range(config["num_hidden_layers"]):

@@ -12,6 +12,7 @@ each timer holds the device work of its call.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import time
@@ -19,25 +20,22 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from bench import spec
 from bench.roofline import flash_decode_paged, model_flops, moe_gemm
 from bench.stats import Req
 from bench.traffic import Job
 
-# widths of the configuration file that must equal the port's own config
-# (file key -> ModelConfig field)
-WIDTHS = {
-    "hidden_size": "d_model", "num_attention_heads": "num_heads",
-    "num_key_value_heads": "num_kv_heads", "head_dim": "head_dim",
-    "vocab_size": "vocab_size", "moe_intermediate_size": "moe_d_ff",
-    "num_experts": "num_experts", "n_routed_experts": "num_experts",
-    "num_experts_per_tok": "moe_top_k", "n_shared_experts": "num_shared_experts",
-    "first_k_dense_replace": "first_k_dense", "q_lora_rank": "q_lora_rank",
-    "kv_lora_rank": "kv_lora_rank", "qk_nope_head_dim": "qk_nope_head_dim",
-    "qk_rope_head_dim": "qk_rope_head_dim", "v_head_dim": "v_head_dim",
-    "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps",
-    "moe_capacity_factor": "capacity_factor", "torch_dtype": "dtype",
-}
+# widths of every configuration file that must equal the port's own config
+# (file key -> ModelConfig field); the layout adds its own (``widths``)
+WIDTHS = {"hidden_size": "d_model", "num_attention_heads": "num_heads",
+          "vocab_size": "vocab_size", "rope_theta": "rope_theta", "rms_norm_eps": "norm_eps",
+          "torch_dtype": "dtype"}
 WARMUP_ID = 1 << 40          # request ids of the set-up's shape warm-up
+
+
+def widths(config: dict) -> Dict[str, str]:
+    """``WIDTHS`` and the configuration's layout's own."""
+    return {**WIDTHS, **spec.layout_module(config).WIDTHS}
 
 
 def port_config(config: dict, port_cfg=None):
@@ -47,8 +45,7 @@ def port_config(config: dict, port_cfg=None):
     from repro_torch.configs import get_config
     cfg = (port_cfg or get_config(config["port_arch"])).replace(
         num_layers=config["num_hidden_layers"])
-    want = {f: config[k] for k, f in WIDTHS.items() if k in config}
-    want["d_ff"] = config["intermediate_size"]
+    want = {f: config[k] for k, f in widths(config).items() if k in config}
     for field, value in want.items():
         got = getattr(cfg, field)
         same = abs(got - value) <= 1e-12 * abs(value) if isinstance(value, float) else got == value
@@ -98,7 +95,7 @@ class Probe:
         self.cur: Optional[Step] = None
         self.profiling = False
         self.phase = None
-        self.routes = []               # (phase, expert ids) while profiling
+        self.routes = []               # (phase, MoE layer, expert ids) while profiling
         # every decode call's router outputs, one entry a MoE layer:
         # (rows [(slot, request id, generated)], MoE layer, ids, slots, positions)
         self.decode_routes = []
@@ -129,6 +126,7 @@ class Probe:
     def start(self, r, now):
         plen = min(r.prompt_len, self.engine.max_seq - 1)
         self.phase = ("prefill", plen)
+        self._moe_layer = 0
         t = self.clock()
         self._inner += 1
         with self._span("prefill"):
@@ -188,10 +186,10 @@ class Probe:
     def route(self, logits, k, replica_slots, replica_count, num_slots):
         out = self._route(logits, k, replica_slots, replica_count, num_slots)
         if self.profiling:
-            self.routes.append((self.phase, out[1]))
+            self.routes.append((self.phase, self._moe_layer, out[1]))
         if self.phase[0] == "decode":
             self.decode_routes.append((self._rows, self._moe_layer, out[1], out[2], out[3]))
-            self._moe_layer += 1
+        self._moe_layer += 1
         return out
 
     # -------------------------------------------------------------- steps
@@ -248,8 +246,8 @@ class Probe:
         program reaches its router otherwise than through
         ``models.moe.route_replicated``; the capacity check and the
         decode drops the reference follows would then see nothing."""
-        from bench.weights import is_moe_layer
-        layers = sum(is_moe_layer(self.config, l)
+        lay = spec.layout_module(self.config)
+        layers = sum(lay.is_moe_layer(self.config, l)
                      for l in range(self.config["num_hidden_layers"]))
         return self.decode_calls * layers - len(self.decode_routes)
 
@@ -276,21 +274,28 @@ class Probe:
     # -------------------------------------------------------------- needed work
     def kernel_bounds(self) -> Dict[str, float]:
         """Least seconds of the profiled sub-window's launches of each kernel
-        the roofline metrics read, from the work their inputs need."""
+        the roofline metrics read, from the work their inputs need and the
+        layers' widths, heads and windows (the configuration's layout)."""
         import torch
         c = self.config
-        d, k = c["hidden_size"], c["num_experts_per_tok"]
+        lay = spec.layout_module(c)
+        layers = range(c["num_hidden_layers"])
+        moe_layers = [l for l in layers if lay.is_moe_layer(c, l)]
         out = {"moe_gemm": 0.0, "flash_decode_paged": 0.0}
-        for (kind, what), ids in self.routes:
+        for (kind, what), m, ids in self.routes:
             rows = ids[:what] if kind == "prefill" else ids[torch.as_tensor(what, device=ids.device)]
             reached = int(torch.unique(rows).numel())
-            out["moe_gemm"] += moe_gemm.layer_seconds(d, c["moe_intermediate_size"], reached,
-                                                      rows.numel())
+            launches, d, f = lay.moe_launches(c, moe_layers[m])
+            out["moe_gemm"] += moe_gemm.layer_seconds(d, f, reached, rows.numel(), launches)
         if c["engine"]["kv_layout"] == "paged" and c["engine"]["use_kernels"]:
-            hq, hkv, hd = c["num_attention_heads"], c["num_key_value_heads"], c["head_dim"]
+            # layers alike in heads and window: one count each
+            paged = collections.Counter((lay.paged_heads(c, l), lay.window(c, l)) for l in layers
+                                        if lay.paged_heads(c, l) is not None)
             for lengths in self.decode_lengths:
-                out["flash_decode_paged"] += c["num_hidden_layers"] * \
-                    flash_decode_paged.layer_seconds(lengths, hq, hkv, hd)
+                for ((hq, hkv, hd), window), n in paged.items():
+                    spans = lengths if window is None else [min(x, window) for x in lengths]
+                    out["flash_decode_paged"] += n * \
+                        flash_decode_paged.layer_seconds(spans, hq, hkv, hd)
         return out
 
 

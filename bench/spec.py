@@ -10,10 +10,14 @@ a per-layer metric by adding files and entries, never by editing one.
                  it moves in each cell)
   reference      ``bench/reference/<architecture>.py`` (the configuration's
                  ``architecture`` key)
+  layout         ``bench/layouts/<architecture>.py``: the architecture's leaves,
+                 the port's tree of them, a layer's operations and the kernel
+                 work the roofline readers need (``bench/layouts/__init__.py``)
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 from pathlib import Path
@@ -87,6 +91,16 @@ def reference_module(config: dict, root: Path = ROOT):
     arch = config["architecture"]
     return _load_file(Path(root) / "bench" / "reference" / f"{arch}.py",
                       "bench_reference_" + arch)
+
+
+def layout_module(config: dict, root: Path = ROOT):
+    """``bench/layouts/<architecture>.py`` of a configuration, loaded once."""
+    return _layout(config["architecture"], str(root))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(arch: str, root: str):
+    return _load_file(Path(root) / "bench" / "layouts" / f"{arch}.py", "bench_layout_" + arch)
 
 
 def read_metrics(cell: Cell, run, root: Path = ROOT) -> Dict[str, dict]:

@@ -20,7 +20,8 @@ def test_weights_drawn_alike_on_card(card):
         cell, _ = tiny_cell(name, dtype="bfloat16")
         c = cell.config
         params = weights.program_params(c, 2**31 + 5, card)
-        n_pro = weights.first_dense(c)
+        lay = spec.layout_module(c)
+        n_pro = next(l for l in range(c["num_hidden_layers"]) if lay.is_moe_layer(c, l))
         again = weights.layer(c, 2**31 + 5, n_pro + 1, card)
         moe = params["blocks"]["moe"]
         assert torch.equal(moe["w_gate"][1], again["w_gate"])

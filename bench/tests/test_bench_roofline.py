@@ -4,7 +4,7 @@ import pytest
 
 from bench import trace
 from bench.roofline import flash_decode_paged, model_flops, moe_gemm, peaks
-from bench.tests.tiny import DSV2, QWEN3
+from bench import spec
 
 
 def test_peaks_and_least_seconds():
@@ -18,7 +18,8 @@ def test_moe_gemm_counts_reached_experts_once():
     nbytes, flops = moe_gemm.launch_work(64, 32, 4, 6)
     assert nbytes == (4 * 64 * 32 + 6 * (64 + 32)) * 2
     assert flops == 2 * 6 * 64 * 32
-    assert moe_gemm.layer_seconds(64, 32, 4, 6) == 3 * peaks.least_seconds(nbytes, flops)
+    assert moe_gemm.layer_seconds(64, 32, 4, 6, 3) == 3 * peaks.least_seconds(nbytes, flops)
+    assert moe_gemm.layer_seconds(64, 32, 4, 6, 2) == 2 * peaks.least_seconds(nbytes, flops)
 
 
 def test_flash_decode_paged_counts_resident_kv():
@@ -27,8 +28,9 @@ def test_flash_decode_paged_counts_resident_kv():
     assert flops == 4 * 13 * 4 * 16
 
 
-def _cfg(sizes, arch):
-    c = dict(sizes, architecture=arch, rms_norm_eps=1e-6)
+def _cfg(arch):
+    c = dict(spec.layout_module({"architecture": arch}).TINY, architecture=arch,
+             rms_norm_eps=1e-6)
     if arch == "qwen3_moe":
         c["num_experts"] = c.pop("num_experts", 8)
     else:
@@ -37,7 +39,7 @@ def _cfg(sizes, arch):
 
 
 def test_model_flops_by_hand_gqa():
-    c = _cfg(QWEN3, "qwen3_moe")                  # d 64, 4/2 heads x 16, 8 experts top-2, f 32
+    c = _cfg("qwen3_moe")                  # d 64, 4/2 heads x 16, 8 experts top-2, f 32
     d, L = 64, 2
     proj = d * (4 + 2 * 2) * 16 + 4 * 16 * d
     per_layer = 2 * proj + 4 * 4 * 16 * 5 + 2 * d * 8 + 6 * d * 32 * 2
@@ -51,7 +53,7 @@ def test_model_flops_by_hand_gqa():
 
 
 def test_model_flops_by_hand_mla():
-    c = _cfg(DSV2, "deepseek_v2")                 # 1 dense + 2 MoE layers
+    c = _cfg("deepseek_v2")                 # 1 dense + 2 MoE layers
     d, h = 64, 4
     proj = d * 32 + 32 * h * 24 + d * (16 + 8) + 16 * h * 32 + h * 16 * d
     attn = 2 * proj + 2 * h * 24 * 9 + 2 * h * 16 * 9

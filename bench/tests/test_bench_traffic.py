@@ -4,6 +4,7 @@ program's generators draw."""
 from collections import Counter
 
 import numpy as np
+import pytest
 
 from bench import spec, traffic
 
@@ -21,10 +22,21 @@ def test_open_loop_deterministic_and_same_work_for_every_seed():
         [(j.due, j.out_len, len(j.prompt)) for j in b]
     assert all(np.array_equal(x.prompt, y.prompt) for x, y in zip(a, b))
     assert [j.due for j in a] == [j.due for j in c]
-    assert sorted((j.out_len, len(j.prompt)) for j in a) == \
-        sorted((j.out_len, len(j.prompt)) for j in c)
-    assert [j.out_len for j in a] != [j.out_len for j in c]
+    # the cell's mix keeps the master order: the same sizes at the same times
+    assert mix["order"] == "fixed"
+    assert [(j.out_len, len(j.prompt)) for j in a] == [(j.out_len, len(j.prompt)) for j in c]
     assert not np.array_equal(a[0].prompt[:16], c[0].prompt[:16])
+    # by phase, the seed orders the same sizes
+    by_phase = dict(mix, order="phase")
+    pa = traffic.open_loop(by_phase, 2**31 + 7, 151936, 8191)
+    pc = traffic.open_loop(by_phase, 5, 151936, 8191)
+    assert [j.due for j in pa] == [j.due for j in a]
+    assert sorted((j.out_len, len(j.prompt)) for j in pa) == \
+        sorted((j.out_len, len(j.prompt)) for j in pc) == \
+        sorted((j.out_len, len(j.prompt)) for j in a)
+    assert [j.out_len for j in pa] != [j.out_len for j in pc]
+    with pytest.raises(ValueError):
+        traffic.open_loop(dict(mix, order="shuffled"), 5, 151936, 8191)
     # the MMPP: over the run about 0.69 x rps, bursts at 2.5 x rps
     rps = mix["arrival"]["rps"]
     rate = len(a) / a[-1].due
@@ -36,11 +48,13 @@ def test_open_loop_keeps_each_phase_work():
     mix = _mix("qwen3-burstgpt-mmpp")
     master = np.random.default_rng(mix["master_seed"])
     _, phase = traffic.arrivals(master, mix["requests"], mix["arrival"])
-    a = traffic.open_loop(mix, 1, 1000, 8191)
-    b = traffic.open_loop(mix, 2, 1000, 8191)
-    for p in np.unique(phase)[:20]:
-        idx = np.flatnonzero(phase == p)
-        assert sorted(a[i].out_len for i in idx) == sorted(b[i].out_len for i in idx)
+    for order in ("fixed", "phase"):
+        m = dict(mix, order=order)
+        a = traffic.open_loop(m, 1, 1000, 8191)
+        b = traffic.open_loop(m, 2, 1000, 8191)
+        for p in np.unique(phase)[:20]:
+            idx = np.flatnonzero(phase == p)
+            assert sorted(a[i].out_len for i in idx) == sorted(b[i].out_len for i in idx)
 
 
 def test_closed_loop_clients_and_equilibrium_start():

@@ -7,16 +7,21 @@ the same random call sequences), so a later change to the program cannot
 change the traffic.  The MMPP copy also returns the phase of each gap.
 
 Every seed offers the same work: the sizes and arrival times come from the
-mix's ``master_seed``; ``--seed`` only orders the sizes (within each
-burst/calm phase of an open loop, within each client's list of a closed
-loop, whose first item then gives way to the equilibrium request) and
-draws the token ids, uniform over the vocabulary and unshared.
+mix's ``master_seed``; ``--seed`` orders the sizes (within each burst/calm
+phase of an open loop, unless its ``order`` is "fixed"; within each
+client's list of a closed loop, whose first item then gives way to the
+equilibrium request) and draws the token ids, uniform over the vocabulary
+and unshared.
 
 Mix keys:
   loop         "open" (requests due on a schedule) or "closed" (clients that
                send their next request when the last one finishes)
   arrival      open: {"process": "mmpp" | "poisson", "rps", "burstiness",
                "mean_dwell"}
+  order        open: "phase" (the default: the seed permutes the sizes within
+               each burst/calm phase) or "fixed" (the master schedule's order:
+               every seed sends the same sizes at the same times, so where a
+               long prompt lands in a burst does not change from run to run)
   clients      closed: the number of clients, each sending its next request
                as soon as the last finishes (no think time);
                ``equilibrium_start`` gives each first request a uniform
@@ -162,8 +167,11 @@ def open_loop(mix: dict, seed: int, vocab: int, max_prompt: int) -> List[Job]:
     due, phase = arrivals(master, n, mix["arrival"])
     plens = np.minimum(prompt_lens(master, n, mix["prompt"]), max_prompt)
     olens = output_lens(master, n, mix["output"])
-    order = _permute_within(phase, np.random.default_rng(subseed(seed, "order")))
-    plens, olens = plens[order], olens[order]
+    if mix.get("order", "phase") == "phase":
+        order = _permute_within(phase, np.random.default_rng(subseed(seed, "order")))
+        plens, olens = plens[order], olens[order]
+    elif mix["order"] != "fixed":
+        raise ValueError(f"unknown order {mix['order']!r}")
     toks = _tokens(seed, plens, vocab)
     return [Job(i, toks[i], int(olens[i]), float(due[i])) for i in range(n)]
 
